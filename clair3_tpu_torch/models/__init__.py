@@ -1,0 +1,4 @@
+"""The two nets of the cascade, in PyTorch."""
+
+from clair3_tpu_torch.models.full_alignment import FullAlignmentNet  # noqa: F401
+from clair3_tpu_torch.models.pileup import PileupNet  # noqa: F401
