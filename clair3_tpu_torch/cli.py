@@ -49,10 +49,31 @@ def resolve_compute_dtype(choice: str, device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
+def _use_kernel_pileup() -> bool:
+    """The pileup net runs through its kernel (K1) unless
+    ``CLAIR3T_DISABLE_PALLAS`` is set, which sends it to its plain route:
+    the counterpart of ``clair3_tpu.cli._use_pallas_lstm``'s switch.  On the
+    CPU the kernel route is the kernel's plain twin."""
+    return not os.environ.get("CLAIR3T_DISABLE_PALLAS")
+
+
+def _use_kernel_fa_conv1(device: torch.device, compute_dtype: torch.dtype) -> bool:
+    """The FA conv1 kernel (K3) is opt-in, as in the JAX package
+    (``clair3_tpu.cli._use_pallas_fa_conv1``): on only with
+    ``CLAIR3T_ENABLE_FA_CONV1=1``, on a CUDA device, at bf16;
+    ``CLAIR3T_DISABLE_PALLAS`` wins over it."""
+    if os.environ.get("CLAIR3T_DISABLE_PALLAS"):
+        return False
+    return (os.environ.get("CLAIR3T_ENABLE_FA_CONV1") == "1"
+            and torch.device(device).type == "cuda"
+            and compute_dtype == torch.bfloat16)
+
+
 def load_model(path: str, kind: str, device: torch.device,
                compute_dtype: torch.dtype) -> torch.nn.Module:
-    """A net from a .npz checkpoint, on ``device``, in eval mode.  The pileup
-    net runs through its kernel (its plain twin on the CPU)."""
+    """A net from a .npz checkpoint, on ``device``, in eval mode, with its
+    kernels switched as ``_use_kernel_pileup`` and ``_use_kernel_fa_conv1``
+    say."""
     from clair3_tpu_torch.models import FullAlignmentNet, PileupNet
     from clair3_tpu_torch.models.bridge import from_jax_variables
     from clair3_tpu_torch.models.params_io import load_variables
@@ -61,26 +82,33 @@ def load_model(path: str, kind: str, device: torch.device,
     params = variables["params"]
     if kind == "pileup":
         model = PileupNet(add_indel_length="L5_3" in params,
-                          compute_dtype=compute_dtype, use_kernel=True)
+                          compute_dtype=compute_dtype, use_kernel=_use_kernel_pileup())
     else:
         model = FullAlignmentNet(
             add_indel_length=True,
             input_channels=params["conv1"]["conv"]["kernel"].shape[2],
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype,
+            use_kernel_conv1=_use_kernel_fa_conv1(device, compute_dtype))
     model.load_state_dict(from_jax_variables(variables), strict=True)
     return model.to(device).eval()
 
 
 def _load_engine(path: str, kind: str, device: torch.device,
                  compute_dtype: torch.dtype):
+    """The engines as ``clair3_tpu.cli._load_engine`` builds them: pileup
+    batches as int16 or their compact form; full-alignment batches cropped
+    to their depth band and packed."""
     from clair3_tpu_torch.pipeline.engine import InferenceEngine
 
     model = load_model(path, kind, device, compute_dtype)
     if kind == "pileup":
         # counts are bounded by ~1.5x max_depth after the high-coverage
-        # rescale, so int16 halves the host->device copy losslessly
-        return InferenceEngine(model, device, transfer_dtype=np.int16)
-    engine = InferenceEngine(model, device, transfer_dtype=np.int8)
+        # rescale, so int16 halves the host->device copy losslessly, and
+        # the compact form halves it again
+        return InferenceEngine(model, device, transfer_dtype=np.int16,
+                               pileup_compact=True)
+    engine = InferenceEngine(model, device, transfer_dtype=np.int8,
+                             depth_crop=True, fa_compact=True)
     engine.fa_input_channels = model.input_channels
     return engine
 

@@ -9,6 +9,12 @@ four heads.  The convolutions run in torch's NCHW layout through
 ``torch.nn.functional.conv2d`` (the JAX package leaves them to XLA too);
 weights keep torch's ``[O, I, kh, kw]`` layout and BatchNorm keeps flax's
 four tensors, applied as an inference affine at eps 1e-3.
+
+With ``use_kernel_conv1`` (inference only, the counterpart of the JAX
+``use_pallas_conv1``) the first ConvBNRelu runs through
+``ops.fa_conv1.fa_conv1`` on the same ``conv1.conv`` / ``conv1.bn``
+tensors: the CUDA kernel for a tensor on the card, its plain twin for a
+tensor on the CPU.  One state_dict drives both routes.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 
 from clair3_tpu.config import FA_CHANNEL_SIZE, FA_NORMALIZE_NUM
 from clair3_tpu_torch.models.layers import HEAD_NAMES, HEAD_SIZES, Dense
+from clair3_tpu_torch.ops.fa_conv1 import fa_conv1
 
 BN_EPS = 1e-3
 
@@ -107,9 +114,11 @@ class FullAlignmentNet(nn.Module):
     def __init__(self, add_indel_length: bool = True,
                  input_channels: int = FA_CHANNEL_SIZE,
                  l4_units: int = 256, l5_units: int = 128,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_kernel_conv1: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.use_kernel_conv1 = use_kernel_conv1
         self.n_heads = 4 if add_indel_length else 2
         self.conv1 = ConvBNRelu(input_channels, 64, stride=2)
         self.res_block1 = ResBlock(64)
@@ -128,8 +137,15 @@ class FullAlignmentNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        x = (x.to(dt) / FA_NORMALIZE_NUM).permute(0, 3, 1, 2)  # NHWC -> NCHW
-        for stage in (self.conv1, self.res_block1, self.conv3, self.res_block2,
+        if self.use_kernel_conv1 and not self.training:
+            conv, bn = self.conv1.conv, self.conv1.bn
+            x = fa_conv1(x, conv.weight.permute(2, 3, 1, 0), conv.bias, bn.scale,
+                         bn.bias, bn.mean, bn.var, eps=BN_EPS,
+                         norm=float(FA_NORMALIZE_NUM), compute_dtype=dt)
+            x = x.permute(0, 3, 1, 2)  # NHWC view of NCHW memory -> NCHW
+        else:
+            x = self.conv1((x.to(dt) / FA_NORMALIZE_NUM).permute(0, 3, 1, 2))
+        for stage in (self.res_block1, self.conv3, self.res_block2,
                       self.conv5, self.res_block3):
             x = stage(x)
         x = F.selu(self.L4(pyramid_pool(x), dt))

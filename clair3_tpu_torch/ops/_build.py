@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``csrc/`` at first use and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, for Hopper (``sm_90a``), into ``_kernels/`` beside this package
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface, in ``_kernels/`` beside this package
 (git-ignored).  The library's name carries a hash of the sources and flags,
 so an edited source is rebuilt and a stale build is never loaded.  The
 library is loaded with ``ctypes``; pointers and the stream are passed as
@@ -16,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -23,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -49,7 +52,7 @@ def _sources(ext: str):
 
 
 def _library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources("cu") + _sources("cuh"):
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + fh.read())
@@ -65,12 +68,25 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.time()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources("cu")],
-                          capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in _sources("cu"):
+            obj = os.path.join(objdir, os.path.basename(src) + ".o")
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        logs = [proc.communicate()[0] for _, proc in jobs]
+        build_log = "".join(logs)
+        if any(proc.returncode for _, proc in jobs):
+            build_seconds = time.time() - t0
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *(obj for obj, _ in jobs)],
+                              capture_output=True, text=True)
     build_seconds = time.time() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
     os.replace(tmp, path)  # never load a half-written library
     return path
 
@@ -85,6 +101,10 @@ def load_library() -> ctypes.CDLL:
             lib.clair3t_pileup_full.argtypes = (
                 [i, i] + [vp] * 15 + [i] * 8 + [i] * 5 + [vp])
             lib.clair3t_pileup_full.restype = i
+            lib.clair3t_fa_conv1.argtypes = [i, i] + [vp] * 4 + [i] * 5 + [vp]
+            lib.clair3t_fa_conv1.restype = i
+            lib.clair3t_bilstm.argtypes = [i, i] + [vp] * 3 + [i] * 3 + [vp]
+            lib.clair3t_bilstm.restype = i
             lib.clair3t_cuda_error_string.argtypes = [i]
             lib.clair3t_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -11,45 +11,65 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from clair3_tpu_torch.ops.bilstm import bilstm_recurrence
+
+
+def _project(x: torch.Tensor, wi: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One input projection for both directions, stacked as the recurrence
+    walks them: ``[T, 2, B, 4H]``, slot 1 reversed in time."""
+    H4 = wi.shape[-1]
+    xw = x @ torch.cat([wi[0], wi[1]], dim=1)                 # [B, T, 8H]
+    xw_f = (xw[..., :H4] + b[0]).transpose(0, 1)               # [T, B, 4H]
+    xw_b = (xw[..., H4:] + b[1]).transpose(0, 1).flip(0)       # backward walk
+    return torch.stack([xw_f, xw_b], dim=1)
+
+
+def _unstack(hs: torch.Tensor) -> torch.Tensor:
+    """``[T, 2, B, H]`` (slot 1 reversed) -> ``[B, T, 2H]`` in torch order
+    (``[h_fwd(t); h_bwd(t)]``)."""
+    fwd = hs[:, 0].transpose(0, 1)
+    bwd = hs[:, 1].flip(0).transpose(0, 1)     # un-reverse the backward walk
+    return torch.cat([fwd, bwd], dim=-1)
+
 
 def bilstm(x: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
            b: torch.Tensor) -> torch.Tensor:
     """Both directions in one loop over ``[B, T, C]``: step t advances the
     forward direction at time t and the backward one at time T-1-t, with the
     two recurrent products batched.  Everything runs in ``x.dtype``, as the
-    JAX scan does.  Returns ``[B, T, 2H]`` in torch order
-    (``[h_fwd(t); h_bwd(t)]``)."""
-    B, T, C = x.shape
-    H = wh.shape[1]
+    JAX scan does.  Returns ``[B, T, 2H]`` in torch order."""
     dt = x.dtype
     wi, wh, b = wi.to(dt), wh.to(dt), b.to(dt)
-    # one input projection for both directions: [B, T, 8H]
-    xw = x @ torch.cat([wi[0], wi[1]], dim=1)
-    xw_f = (xw[..., :4 * H] + b[0]).transpose(0, 1)          # [T, B, 4H]
-    xw_b = (xw[..., 4 * H:] + b[1]).transpose(0, 1).flip(0)  # backward walk
-    h = torch.zeros(2, B, H, dtype=dt, device=x.device)
-    c = torch.zeros(2, B, H, dtype=dt, device=x.device)
+    xw = _project(x, wi, b)
+    _, _, B, H4 = xw.shape
+    h = torch.zeros(2, B, H4 // 4, dtype=dt, device=x.device)
+    c = torch.zeros_like(h)
     hs = []
-    for t in range(T):
-        gates = torch.stack([xw_f[t], xw_b[t]]) + torch.bmm(h, wh)
+    for x_t in xw:
+        gates = x_t + torch.bmm(h, wh)
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs.append(h)
-    hs = torch.stack(hs)                       # [T, 2, B, H]
-    fwd = hs[:, 0].transpose(0, 1)             # [B, T, H]
-    bwd = hs[:, 1].flip(0).transpose(0, 1)     # un-reverse the backward walk
-    return torch.cat([fwd, bwd], dim=-1)
+    return _unstack(torch.stack(hs))
 
 
 class BiLSTM(nn.Module):
-    """Bidirectional LSTM layer ``[B, T, C] -> [B, T, 2H]``."""
+    """Bidirectional LSTM layer ``[B, T, C] -> [B, T, 2H]``.  With
+    ``use_kernel`` the recurrence runs through ``ops.bilstm`` (the CUDA
+    kernel on the card, its plain twin on the CPU), as the JAX
+    ``BiLSTM(use_pallas=True)`` does; inference only."""
 
-    def __init__(self, input_size: int, hidden: int):
+    def __init__(self, input_size: int, hidden: int, use_kernel: bool = False):
         super().__init__()
+        self.use_kernel = use_kernel
         self.wi = nn.Parameter(torch.zeros(2, input_size, 4 * hidden))
         self.wh = nn.Parameter(torch.zeros(2, hidden, 4 * hidden))
         self.b = nn.Parameter(torch.zeros(2, 4 * hidden))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bilstm(x, self.wi, self.wh, self.b)
+        if not self.use_kernel:
+            return bilstm(x, self.wi, self.wh, self.b)
+        dt = x.dtype
+        xw = _project(x, self.wi.to(dt), self.b.to(dt)).contiguous()
+        return _unstack(bilstm_recurrence(xw, self.wh.to(dt)))

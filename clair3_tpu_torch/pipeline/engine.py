@@ -10,9 +10,21 @@
 * probabilities come back to pinned host memory, and ``gather`` waits for
   them.
 
-Pileup batches cross as int16 and full-alignment batches as int8, dense.
-The JAX engine's compact wire forms and FA depth crop are exact reshapings
-of the same input and are not ported yet.
+Wire forms, in the JAX engine's routing order (``_wire_form``): with
+``fa_compact``, a full-alignment batch crosses as its sparse pack (native
+band scan and pack straight from the full-depth tensor, else the numpy
+crop and the sparse pack), else as the v1 pack; with ``pileup_compact``, a
+pileup batch crosses as uint8 magnitudes and the negated-channel index.
+A pack that returns ``None`` leaves the batch dense (int16 pileup, int8
+full alignment).  With ``depth_crop`` only the centred band of non-empty
+depth rows crosses, and the device pads it back to the full depth.  Every
+form is an exact re-encoding of the batch, rebuilt on the device before
+the net (``ops/pileup_compact.py``, ``ops/fa_compact.py``).  The packers
+are the JAX package's own numpy and native code.  Their modules
+(``clair3_tpu/ops/{fa,pileup}_compact.py``) import only numpy, but their
+package's ``__init__`` imports jax: unless jax is already loaded, they are
+loaded from their files without it (``_jax_free_module``), so the port
+never loads jax, as ``pipeline/call.py`` does for the pipeline.
 
 The pileup high-coverage rescale (``rescale_high_coverage_pileup``) is a
 jax-free copy of the JAX engine's, so the pipeline can run where jax is not
@@ -21,34 +33,81 @@ installed.
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
+import os
+import sys
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from clair3_tpu_torch.ops.fa_compact import unpack_fa_sparse_torch, unpack_fa_torch
+from clair3_tpu_torch.ops.pileup_compact import unpack_pileup_torch
 
 _DEFAULT_BUCKETS = (256, 1024, 2048, 4096)
 _EMPTY = np.zeros((0, 90), np.float32)
-_TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
-                np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}
+_TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8,
+                np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
+                np.dtype(np.float32): torch.float32}
+
+
+def _jax_free_module(name: str):
+    """Import ``name``, a numpy-only module of the JAX package, without
+    running ``clair3_tpu/ops/__init__.py`` (which imports jax) unless jax
+    is already loaded."""
+    if "jax" in sys.modules or name in sys.modules:
+        return importlib.import_module(name)
+    import clair3_tpu
+
+    path = os.path.join(os.path.dirname(clair3_tpu.__file__), *name.split(".")[1:]) + ".py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_fa_compact = _jax_free_module("clair3_tpu.ops.fa_compact")
+_pileup_compact = _jax_free_module("clair3_tpu.ops.pileup_compact")
+
+# how a batch crosses: the dense tensor or one of the packed forms
+DENSE, FA_SPARSE, FA_V1, PILEUP_COMPACT = "dense", "fa_sparse", "fa_v1", "pileup_compact"
+
+
+def _pad_to_bucket(planes: Dict[str, np.ndarray], m: int, bucket: int) -> Dict[str, np.ndarray]:
+    """Zero-pad every plane from ``m`` to ``bucket`` rows."""
+    if m >= bucket:
+        return planes
+    return {k: np.concatenate([v, np.zeros((bucket - m,) + v.shape[1:], v.dtype)])
+            for k, v in planes.items()}
 
 
 class InferenceEngine:
     """Batch forward of one net on one device.
 
     ``model`` is an ``nn.Module`` already on ``device``; ``transfer_dtype``
-    is the numpy dtype of the host->device copy (the net widens it to its
-    compute dtype on the device)."""
+    is the numpy dtype of a dense host->device copy (the net widens it to
+    its compute dtype on the device).  ``depth_crop``, ``fa_compact`` and
+    ``pileup_compact`` are the JAX engine's options of the same names."""
 
     def __init__(self, model: torch.nn.Module, device: torch.device,
                  buckets: Sequence[int] = _DEFAULT_BUCKETS,
-                 transfer_dtype=None):
+                 transfer_dtype=None, depth_crop: bool = False,
+                 fa_compact: bool = False, pileup_compact: bool = False):
         self.model = model.eval()
         self.device = torch.device(device)
         self.buckets = tuple(sorted(buckets))
         self.transfer_dtype = transfer_dtype
-        # bytes handed to the host->device copy (post pad), on the submitter
+        self.depth_crop = depth_crop
+        self.fa_compact = fa_compact
+        self.pileup_compact = pileup_compact
+        # bytes handed to the host->device copy (post pack/pad), on the
+        # submitter thread; dense_bytes: what the dense form of the same
+        # padded batches would have shipped, for comparison
         self.bytes_shipped = 0
+        self.dense_bytes = 0
         self.fa_input_channels: Optional[int] = None
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -63,26 +122,123 @@ class InferenceEngine:
         top = self.buckets[-1]
         return ((n + top - 1) // top) * top
 
-    def _host_batch(self, chunk: np.ndarray, bucket: int) -> torch.Tensor:
-        """The chunk in the transfer dtype, zero-padded to ``bucket`` rows,
-        in pinned memory when the device is a GPU."""
-        dtype = np.dtype(self.transfer_dtype or chunk.dtype)
-        host = torch.empty((bucket,) + chunk.shape[1:], dtype=_TORCH_DTYPE[dtype],
-                           pin_memory=self._stream is not None)
-        view = host.numpy()
-        view[: len(chunk)] = chunk
-        view[len(chunk):] = 0
+    @staticmethod
+    def _depth_buckets(full_depth: int) -> Tuple[int, ...]:
+        """(cropped, full): one reduced band covering typical coverage, and
+        the full depth."""
+        crop = min(full_depth, ((int(full_depth * 0.55) + 7) // 8) * 8)
+        return (crop, full_depth) if crop < full_depth else (full_depth,)
+
+    def _band(self, D: int, lo: int, hi: int) -> Tuple[int, int]:
+        """(top, rows) of the smallest depth bucket whose centred window
+        holds the non-empty rows ``[lo, hi)``."""
+        if self.depth_crop:
+            for db in self._depth_buckets(D):
+                top = (D - db) // 2
+                if top <= lo and hi <= top + db:
+                    return top, db
+        return 0, D
+
+    def _crop_depth(self, chunk: np.ndarray) -> Tuple[np.ndarray, Optional[int]]:
+        """Crop the centred depth band; (cropped, full depth), or
+        (chunk, None) when cropping is off or does not apply."""
+        if not self.depth_crop or chunk.ndim != 4:
+            return chunk, None
+        D = chunk.shape[1]
+        nz = np.flatnonzero(chunk.any(axis=(0, 2, 3)))
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if len(nz) else (D // 2, D // 2)
+        top, db = self._band(D, lo, hi)
+        if db == D:
+            return chunk, None
+        return np.ascontiguousarray(chunk[:, top: top + db]), D
+
+    def _sparse_fast_path(self, chunk: np.ndarray):
+        """Native band scan and sparse pack straight from the full-depth
+        tensor (no numpy crop); (planes, full depth) or None when it does
+        not apply."""
+        if (chunk.dtype != np.int8 or not chunk.flags.c_contiguous
+                or os.environ.get("CLAIR3T_VERIFY_PACK")):
+            return None
+        from clair3_tpu.native import (fa_band_native, fa_pack_sparse_native,
+                                       pack_native_available)
+
+        if not pack_native_available():
+            return None
+        band = fa_band_native(chunk)
+        if band is None:
+            return None
+        D = chunk.shape[1]
+        top, db = self._band(D, *band)
+        sp = fa_pack_sparse_native(chunk, _fa_compact.K_BUCKETS, row_off=top, rows=db)
+        if sp is None:
+            return None
+        return sp, (D if db < D else None)
+
+    def _wire_form(self, chunk: np.ndarray):
+        """``(form, planes, full_depth)``: the host planes of one chunk, in
+        the JAX engine's routing order (``engine.py:287-334``)."""
+        if self.transfer_dtype is not None and chunk.dtype != self.transfer_dtype:
+            chunk = chunk.astype(self.transfer_dtype)
+        fa = chunk.ndim == 4
+        if self.fa_compact and fa:
+            fast = self._sparse_fast_path(chunk)
+            if fast is not None:
+                return (FA_SPARSE,) + fast
+        chunk, full_depth = self._crop_depth(chunk)
+        if self.fa_compact and fa:
+            sp = _fa_compact.pack_fa_sparse(chunk)
+            if sp is not None:
+                return FA_SPARSE, sp, full_depth
+            v1 = _fa_compact.pack_fa(chunk)
+            if v1 is not None:
+                return FA_V1, v1, full_depth
+        if self.pileup_compact and chunk.ndim == 3:
+            packed = _pileup_compact.pack_pileup(chunk)
+            if packed is not None:
+                return PILEUP_COMPACT, packed, None
+        return DENSE, {"x": chunk}, full_depth
+
+    def _host_plane(self, plane: np.ndarray) -> torch.Tensor:
+        """A plane as a host tensor, in pinned memory when the device is a
+        GPU; uint16 crosses as the same bytes viewed as int16."""
+        if plane.dtype == np.uint16:
+            plane = plane.view(np.int16)
+        if self._stream is None:
+            return torch.from_numpy(np.ascontiguousarray(plane))
+        host = torch.empty(plane.shape, dtype=_TORCH_DTYPE[plane.dtype], pin_memory=True)
+        host.numpy()[...] = plane
         return host
 
+    def _net_input(self, form: str, dev: Dict[str, torch.Tensor],
+                   full_depth: Optional[int]) -> torch.Tensor:
+        """The dense batch on the device: unpack, then pad the depth band
+        back to the full depth."""
+        if form == FA_SPARSE:
+            x = unpack_fa_sparse_torch(dev)
+        elif form == FA_V1:
+            x = unpack_fa_torch(dev["cells"], dev["bitmask"], dev["scalars"], dev["refcol"])
+        elif form == PILEUP_COMPACT:
+            x = unpack_pileup_torch(dev["mags"], dev["negidx"])
+        else:
+            x = dev["x"]
+        if full_depth is not None and x.shape[1] < full_depth:
+            top = (full_depth - x.shape[1]) // 2
+            x = F.pad(x, (0, 0, 0, 0, top, full_depth - x.shape[1] - top))
+        return x
+
     def _put_and_forward(self, chunk: np.ndarray, bucket: int):
-        host = self._host_batch(chunk, bucket)
-        self.bytes_shipped += host.numel() * host.element_size()
+        form, planes, full_depth = self._wire_form(chunk)
+        planes = _pad_to_bucket(planes, chunk.shape[0], bucket)
+        self.bytes_shipped += sum(v.nbytes for v in planes.values())
+        self.dense_bytes += (bucket * int(np.prod(chunk.shape[1:]))
+                             * np.dtype(self.transfer_dtype or chunk.dtype).itemsize)
+        host = {k: self._host_plane(v) for k, v in planes.items()}
         if self._stream is None:
             with torch.inference_mode():
-                return self.model(host), None
+                return self.model(self._net_input(form, host, full_depth)), None
         with torch.cuda.stream(self._stream), torch.inference_mode():
-            x = host.to(self.device, non_blocking=True)
-            y = self.model(x)
+            dev = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+            y = self.model(self._net_input(form, dev, full_depth))
             out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
             out.copy_(y, non_blocking=True)
             done = torch.cuda.Event()
@@ -119,15 +275,36 @@ class InferenceEngine:
             return _EMPTY.copy()
         return self.gather(self.predict_async(x))
 
+    def warmup_batches(self, input_shape, dtype) -> List[np.ndarray]:
+        """One smallest-bucket batch per route the engine can take: every
+        depth band, and with ``fa_compact`` every sparse K bucket (rows
+        with more than K0 alt entries force the larger one)."""
+        D = input_shape[0]
+        depths = (self._depth_buckets(D) if self.depth_crop and len(input_shape) == 3
+                  else (D,))
+        batches = []
+        for db in depths:
+            x = np.zeros((self.buckets[0],) + tuple(input_shape), dtype)
+            if len(input_shape) == 3:
+                top = (D - db) // 2
+                x[:, top: top + db, :, 2] = 1  # covered reads fill the band
+            batches.append(x)
+            if self.fa_compact and len(input_shape) == 3:
+                w = x.copy()
+                w[:, top: top + _fa_compact.K_BUCKETS[0] // 33 + 1, :, 1] = 1
+                batches.append(w)
+        return batches
+
     def warmup(self, input_shape, dtype) -> None:
-        """Run the smallest bucket once on a GPU, so the kernel build and
-        the library initialisation happen before the first real batch.  On
-        the CPU there is nothing to prepare."""
+        """Run every route once on a GPU (``warmup_batches``), so the
+        kernel build, the library initialisation and each route's first
+        launches happen before the first real batch.  On the CPU there is
+        nothing to prepare."""
         if self._stream is None:
             return
-        _, done = self._put_and_forward(
-            np.zeros((1,) + tuple(input_shape), dtype), self.buckets[0])
-        done.synchronize()
+        for x in self.warmup_batches(input_shape, dtype):
+            _, done = self._put_and_forward(x, self.buckets[0])
+            done.synchronize()
 
     def warmup_async(self, input_shape, dtype) -> Future:
         """Queue ``warmup`` on the submitter thread, ahead of any batch."""

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 from torch import nn
 
 from clair3_tpu_torch.models.bridge import to_jax_variables
@@ -35,3 +36,12 @@ def random_variables(net: nn.Module, seed: int) -> Dict:
 def random_counts(seed: int, shape, low: int = -30, high: int = 30) -> np.ndarray:
     """Integer pileup-like counts in ``[low, high)``."""
     return np.random.RandomState(seed).randint(low, high, shape).astype(np.int32)
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``max |got - want|`` in units of the bf16 ulp of ``|want|``, with an
+    absolute floor of 1e-5 for values near 0."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want.abs())
+    ulp = torch.clamp(torch.ldexp(torch.ones_like(want), e - 8), min=1e-5)
+    return ((got - want).abs() / ulp).max().item()

@@ -1,4 +1,4 @@
-"""The pileup CUDA kernel against its plain twin, on the card.
+"""The CUDA kernels against their plain twins, on the card.
 
 These tests need a CUDA device and skip without one (run them on a GPU host
 with `python -m pytest --noconftest tests/test_torch_kernel_cuda.py`; the
@@ -10,6 +10,7 @@ and random counts, as here: with trained weights, random counts are no
 pileup a caller makes and bf16 itself moves them by ~2e-2).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,8 +18,11 @@ from clair3_tpu.testing import trained_fixture_path
 from clair3_tpu_torch.cli import load_model
 from clair3_tpu_torch.models import PileupNet
 from clair3_tpu_torch.models.bridge import from_jax_variables
+from clair3_tpu_torch.ops import bilstm as k2
+from clair3_tpu_torch.ops import fa_conv1 as k3
 from clair3_tpu_torch.ops import pileup_full as pf
-from clair3_tpu_torch.testing import random_counts, random_variables
+from clair3_tpu_torch.ops.lstm import BiLSTM, bilstm
+from clair3_tpu_torch.testing import bf16_ulps, random_counts, random_variables
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +32,7 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -72,3 +77,72 @@ def test_empty_batch_launches_nothing(device):
     out = pf.pileup_full(torch.zeros(0, 33, 18, device=device), *trunk, heads,
                          compute_dtype=torch.float32)
     assert out.shape == (0, 24) and pf.launches == before
+
+
+@pytest.mark.parametrize("batch", [1, 11, 256])
+@pytest.mark.parametrize("depth,channels", [(55, 8), (89, 9), (89, 8), (55, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fa_conv1_matches_plain(device, batch, depth, channels, dtype):
+    rs = np.random.RandomState(depth * channels + batch)
+    x = torch.from_numpy(rs.randint(-100, 101, (batch, depth, 33, channels))
+                         .astype(np.int8)).to(device)
+    ops = [torch.from_numpy(o.astype(np.float32)).to(device) for o in (
+        rs.randn(3, 3, channels, 64) * 0.2, rs.randn(64) * 0.1, rs.rand(64) + 0.5,
+        rs.randn(64) * 0.1, rs.randn(64) * 0.3, rs.rand(64) + 0.5)]
+    before = k3.launches
+    got = k3.fa_conv1(x, *ops, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    want = k3.fa_conv1_reference(x, *ops, compute_dtype=dtype)
+    assert got.shape == want.shape == (batch, -(-depth // 2), 17, 64)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    # NCHW memory under the NHWC shape: the net's permute is free
+    assert got.permute(0, 3, 1, 2).is_contiguous()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert bf16_ulps(got, want) <= 2
+
+
+@pytest.mark.parametrize("batch", [1, 256, 1000])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_bilstm_matches_plain(device, batch, dtype, tol):
+    H = 128
+    rs = np.random.RandomState(batch)
+    xw = torch.from_numpy(rs.randn(33, 2, batch, 4 * H).astype(np.float32)).to(device, dtype)
+    wh = torch.from_numpy((rs.randn(2, H, 4 * H) * 0.1).astype(np.float32)).to(device, dtype)
+    before = k2.launches
+    got = k2.bilstm_recurrence(xw, wh)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    want = k2.bilstm_recurrence_reference(xw, wh)
+    assert got.shape == (33, 2, batch, H) and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_bilstm_module_kernel_route(device):
+    C, H = 256, 160
+    rs = np.random.RandomState(9)
+    mod = BiLSTM(C, H, use_kernel=True)
+    with torch.no_grad():
+        for p, scale in ((mod.wi, 1 / np.sqrt(C)), (mod.wh, 0.1), (mod.b, 0.1)):
+            p.copy_(torch.from_numpy(rs.randn(*p.shape) * scale))
+    mod = mod.to(device)
+    x = torch.from_numpy(rs.randn(300, 33, C).astype(np.float32)).to(device)
+    with torch.inference_mode():
+        before = k2.launches
+        got = mod(x)
+        assert k2.launches == before + 1
+        want = bilstm(x, mod.wi, mod.wh, mod.b)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_new_kernels_launch_nothing_on_empty_batches(device):
+    ops = [torch.ones(3, 3, 8, 64, device=device)] + [torch.ones(64, device=device)] * 5
+    before = k3.launches
+    out = k3.fa_conv1(torch.zeros(0, 55, 33, 8, dtype=torch.int8, device=device), *ops)
+    assert out.shape == (0, 28, 17, 64) and k3.launches == before
+    before = k2.launches
+    hs = k2.bilstm_recurrence(torch.zeros(33, 2, 0, 512, device=device),
+                              torch.zeros(2, 128, 512, device=device))
+    assert hs.shape == (33, 2, 0, 128) and k2.launches == before
