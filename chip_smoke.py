@@ -3,16 +3,27 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device, nvcc and the repository's sources; exits non-zero
-without them.  Loads neither jax nor any module of the JAX package that
-needs it (checked at the end), whether or not jax is installed.
+Needs one CUDA device, nvcc, g++ and the repository's sources; exits
+non-zero without them.  Imports only the port: it loads neither jax, flax
+or optax nor any module of the JAX package clair3_tpu (checked at the end),
+whether or not they are installed.
 
-Phase 1  builds the CUDA kernels from clair3_tpu_torch/csrc/ (nvcc, sm_90a).
+Every kernel is timed beside its bound: the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and its operations over
+the dense peak of their type (989 TFLOP/s bf16 on the tensor cores, 67
+TFLOP/s f32), the H100 SXM data sheet's figures.
+
+Phase 1  builds the CUDA kernels from clair3_tpu_torch/csrc/ (nvcc, sm_90a)
+         and, beside them, the port's native host library (g++,
+         clair3_tpu_torch/native), and prints both times.
 Phase 2  holds the pileup kernel against its plain PyTorch twin on the card,
          with the committed hifi weights (2 heads) and seeded random 4-head
          weights, on real pileup tensors (extracted from the phase-3 region)
          and on random counts, at B = 256, 4096, 1000 (not a multiple of
-         the tile) and 2048 (the engine's buckets are 256/1024/2048/4096):
+         the tile) and 2048 (the engine's buckets are 256/1024/2048/4096),
+         timed at each B beside its bound, with its trunk mode (no PyTorch
+         call computes the whole net or its trunk, so neither has a library
+         time):
            f32 kernel vs f32 twin        max |dp| <= 2e-4
            bf16 kernel vs f32 twin       max |dp| <  1e-2
            trunk mode (n_heads = 0): f32 within 2e-4 (relative to the
@@ -43,20 +54,26 @@ Phase 4  holds the FA conv1 kernel against its plain twin
          weights (depth 55 x 8 channels) on real FA tensors of the phase-3
          region, the committed ONT weights (89 x 9) on seeded random int8,
          and seeded random weights at 89 x 8 and 55 x 9; B = 1, 11, 256,
-         1024.  f32 within 1e-5; bf16 within 2 bf16 ulps of the bf16 twin's
-         output (floor 1e-5).  Also FullAlignmentNet(use_kernel_conv1=True)
+         1024, 2048, 4096.  f32 (direct kernel) within 1e-5; bf16 (tensor-core implicit
+         GEMM) within 2 bf16 ulps of the bf16 twin's output (floor 1e-5).  Also FullAlignmentNet(use_kernel_conv1=True)
          against the standard f32 net, with seeded random weights on random
          int8 and with the hifi weights on the real tensors: f32 within
          2e-4; bf16 within 2e-2 with random weights, the condition of
          tests/test_pallas_fa.py (reported only for the trained net on real
          tensors, where the JAX package's own bf16 nets move p by up to
-         ~5e-2).  Times kernel and twin at B = 1024, 4096.
+         ~5e-2).  Times kernel, twin and the library call (F.conv2d on the
+         batch already cast to the compute dtype, + relu_, cuDNN; the
+         faster of NCHW and channels_last) beside the bound at B = 1024,
+         2048, 4096.
 Phase 5  holds the BiLSTM recurrence kernel against its plain twin
          (ops/bilstm.py) at the pileup net's two layer shapes (C=18, H=128;
          C=256, H=160), B = 256, 1000, 4096, random xw and wh x 0.1: f32
          within 1e-5, bf16 within 1e-2; drives BiLSTM(use_kernel=True) (the
-         kernel's module path) against the plain bilstm at f32 within 1e-5;
-         times kernel and twin at B = 1024, 4096.
+         kernel's module path) against the plain bilstm at f32 within 1e-5
+         and against torch.nn.LSTM(bidirectional=True) (cuDNN) with the
+         same weights within 1e-4; times kernel and twin beside the bound,
+         and the module against nn.LSTM (the library call), at B = 1024,
+         4096.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -67,6 +84,7 @@ import gzip
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -83,6 +101,10 @@ K2_SHAPES = ((18, 128), (256, 160))
 K2_F32_TOL = 1e-5
 K2_BF16_TOL = 1e-2
 TIME_BATCHES = (1024, 4096)
+K3_TIME_BATCHES = (1024, 2048, 4096)
+LSTM_LIB_TOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 EVAL_BP = 120_000
 EVAL_SEED = 91
 GATE_SNP_F1 = 0.990
@@ -108,6 +130,40 @@ def cuda_ms(torch, fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def print_ptxas_report(log):
+    """One line per kernel of the ptxas report: registers and spills."""
+    name, spills = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?((?:pileup_full|bilstm|fa_conv1_tc|fa_conv1)"
+                      r"_kernel)(?:I(13__nv_bfloat16|f|Li(\d+)E))?", line)
+        if m:
+            arg = {"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(2), m.group(3))
+            name = m.group(1) + (f"<{arg}>" if arg else "")
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            print(f"[phase1] {name}: {line.split(':', 1)[1].strip()}; {spills}")
+
+
+def bound(flops, nbytes, dt):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dt)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k1_macs(trunk, heads):
+    """Multiply-adds per candidate of the pileup net: every LSTM weight at
+    each of the 33 steps, the dense and head matrices once."""
+    wi1, wh1, _, wi2, wh2, _, wd, _ = trunk
+    lstm = sum(w.numel() for w in (wi1, wh1, wi2, wh2))
+    return 33 * lstm + wd.numel() + sum(w.numel() for w in heads if w.dim() == 2)
 
 
 def phase2_kernel_vs_plain(torch, nets, real):
@@ -167,12 +223,24 @@ def phase2_kernel_vs_plain(torch, nets, real):
             if label == "hifi":
                 x = inputs["real"]
                 for dt in (bf16, f32):
+                    y = pf.pileup_full(x, *trunk, heads, compute_dtype=dt)
                     k = cuda_ms(torch, lambda: pf.pileup_full(x, *trunk, heads, compute_dtype=dt), 10)
                     p = cuda_ms(torch, lambda: pf.pileup_full_reference(
                         x, *trunk, heads, compute_dtype=dt), 5)
-                    timing[(B, str(dt))] = (k, p)
+                    b_ms, by = bound(2 * B * k1_macs(trunk, heads), nbytes(x, y, *trunk, *heads), dt)
+                    timing[(B, str(dt))] = (k, p, b_ms, by)
                     print(f"[phase2] time B={B:5d} {str(dt):14s} kernel {k:.3f} ms, "
-                          f"plain {p:.3f} ms, kernel {B / k * 1e3:.0f} cand/s")
+                          f"plain {p:.3f} ms, bound {b_ms:.4f} ms ({by}), kernel at "
+                          f"{100 * b_ms / k:.1f}% of the bound, {B / k * 1e3:.0f} cand/s")
+                    # trunk mode (n_heads = 0), the counterpart of pileup_trunk_pallas
+                    y = pf.pileup_trunk(x, *trunk, compute_dtype=dt)
+                    k = cuda_ms(torch, lambda: pf.pileup_trunk(x, *trunk, compute_dtype=dt), 10)
+                    p = cuda_ms(torch, lambda: pf.pileup_trunk_reference(
+                        x, *trunk, compute_dtype=dt), 5)
+                    b_ms, by = bound(2 * B * k1_macs(trunk, ()), nbytes(x, y, *trunk), dt)
+                    print(f"[phase2] time B={B:5d} {str(dt):14s} trunk mode {k:.3f} ms, "
+                          f"plain {p:.3f} ms, bound {b_ms:.4f} ms ({by}), kernel at "
+                          f"{100 * b_ms / k:.1f}% of the bound")
     return timing, worst
 
 
@@ -250,13 +318,13 @@ PHASE3_RUNS = (("bf16", "bf16", {}), ("fp32", "fp32", {}),
 
 
 def phase3_cascade(torch, work, fasta, bam, variants):
-    from clair3_tpu.io.vcf import VcfReader, VcfRecord
-    from clair3_tpu.postprocess import variant_metrics
-    from clair3_tpu.testing import trained_fixture_path
     from clair3_tpu_torch import cli as port_cli
+    from clair3_tpu_torch.io.vcf import VcfReader, VcfRecord
     from clair3_tpu_torch.models import pileup as pileup_model
     from clair3_tpu_torch.ops import fa_conv1 as k3
     from clair3_tpu_torch.ops import pileup_full as pf
+    from clair3_tpu_torch.postprocess import variant_metrics
+    from clair3_tpu_torch.testing import trained_fixture_path
 
     truth = [VcfRecord("chr1", v.pos + 1, v.ref, v.alt, 60, "PASS", ".", "GT",
                        "1/1" if v.genotype == (1, 1) else "0/1") for v in variants]
@@ -346,16 +414,35 @@ def conv1_operands(torch, variables, rng, channels):
     return [torch.from_numpy(np.asarray(o, np.float32)).to(DEVICE) for o in ops]
 
 
+def conv1_library_ms(torch, x, ops, dt):
+    """The one PyTorch call that computes conv1 (cuDNN): ``F.conv2d`` on the
+    batch already cast to ``dt`` (the cast is not timed), with the folded
+    weights and bias, then ``relu_``; the faster of NCHW and channels_last.
+    The port never calls it."""
+    import torch.nn.functional as F
+
+    from clair3_tpu_torch.ops import fa_conv1 as k3
+
+    w_eff, b_eff = k3.fold_bn(*ops, 1e-3, 100.0, dt)
+    w, b = w_eff.permute(3, 2, 0, 1).contiguous(), b_eff.to(dt)
+    xl = x.to(dt).permute(0, 3, 1, 2)  # NCHW shape, channels_last memory
+    times = {}
+    for layout, xin, win in (("nchw", xl.contiguous(), w),
+                             ("channels_last", xl, w.to(memory_format=torch.channels_last))):
+        times[layout] = cuda_ms(torch, lambda: F.conv2d(xin, win, b, stride=2, padding=1).relu_(),
+                                20)
+    return min(times.values()), times
+
+
 def phase4_fa_conv1(torch, real_fa):
     import numpy as np
 
-    from clair3_tpu.testing import trained_fixture_path
     from clair3_tpu_torch.cli import load_model
     from clair3_tpu_torch.models import FullAlignmentNet
     from clair3_tpu_torch.models.bridge import from_jax_variables
     from clair3_tpu_torch.models.params_io import load_variables
     from clair3_tpu_torch.ops import fa_conv1 as k3
-    from clair3_tpu_torch.testing import bf16_ulps, random_variables
+    from clair3_tpu_torch.testing import bf16_ulps, random_variables, trained_fixture_path
 
     f32, bf16 = torch.float32, torch.bfloat16
     rng = np.random.RandomState(41)
@@ -366,35 +453,43 @@ def phase4_fa_conv1(torch, real_fa):
     worst, timing = {}, {}
     for label, depth, channels, variables, kind in cases:
         ops = conv1_operands(torch, variables, rng, channels)
-        for B in K3_BATCHES + TIME_BATCHES[1:]:
+        errs = {f32: [], bf16: []}
+        for B in sorted(set(K3_BATCHES + K3_TIME_BATCHES)):
             if kind == "real":
                 x = np.resize(real_fa, (B, depth, 33, channels))
             else:
                 x = rng.randint(-100, 101, (B, depth, 33, channels)).astype(np.int8)
             x = torch.from_numpy(x).to(DEVICE)
             for dt in (f32, bf16):
-                if B in K3_BATCHES:
-                    got = k3.fa_conv1(x, *ops, compute_dtype=dt)
-                    torch.cuda.synchronize()
-                    want = k3.fa_conv1_reference(x, *ops, compute_dtype=dt)
-                    check(got.shape == want.shape == (B, -(-depth // 2), 17, 64)
-                          and bool(torch.isfinite(got.float()).all()),
-                          f"fa_conv1 {label} B={B} {dt}: shape or non-finite output")
-                    err = (got.float() - want.float()).abs().max().item()
-                    ulps = bf16_ulps(got, want)
-                    print(f"[phase4] {label:8s} {kind:6s} B={B:5d} {str(dt):14s} kernel vs twin "
-                          f"max |d| {err:.3g}" + ("" if dt == f32 else f" ({ulps:.2f} bf16 ulps)"))
-                    if dt == f32:
-                        check(err <= K3_F32_TOL, f"fa_conv1 {label} B={B} f32: {err}")
-                    else:
-                        check(ulps <= K3_BF16_ULPS, f"fa_conv1 {label} B={B} bf16: {ulps} ulps")
-                    worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
-                if B in TIME_BATCHES:
-                    k = cuda_ms(torch, lambda: k3.fa_conv1(x, *ops, compute_dtype=dt), 20)
+                got = k3.fa_conv1(x, *ops, compute_dtype=dt)
+                torch.cuda.synchronize()
+                want = k3.fa_conv1_reference(x, *ops, compute_dtype=dt)
+                check(got.shape == want.shape == (B, -(-depth // 2), 17, 64)
+                      and bool(torch.isfinite(got.float()).all()),
+                      f"fa_conv1 {label} B={B} {dt}: shape or non-finite output")
+                err = (got.float() - want.float()).abs().max().item()
+                ulps = bf16_ulps(got, want)
+                errs[dt].append(f"B={B} {err:.3g}" + ("" if dt == f32 else f" ({ulps:.2f} ulps)"))
+                if dt == f32:
+                    check(err <= K3_F32_TOL, f"fa_conv1 {label} B={B} f32: {err}")
+                else:
+                    check(ulps <= K3_BF16_ULPS, f"fa_conv1 {label} B={B} bf16: {ulps} ulps")
+                worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
+                if B in K3_TIME_BATCHES:
+                    w, b = k3.prepare(*ops, compute_dtype=dt)
+                    k = cuda_ms(torch, lambda: k3.fa_conv1_prepared(x, w, b, dt), 20)
                     p = cuda_ms(torch, lambda: k3.fa_conv1_reference(x, *ops, compute_dtype=dt), 20)
-                    timing[(label, B, str(dt))] = (k, p)
+                    lib, layouts = conv1_library_ms(torch, x, ops, dt)
+                    flops = 2 * got.numel() * 9 * channels
+                    b_ms, by = bound(flops, nbytes(x, got, w, b), dt)
+                    timing[(label, B, str(dt))] = (k, p, lib, b_ms, by)
                     print(f"[phase4] time {label:8s} B={B:5d} {str(dt):14s} kernel {k:.4f} ms, "
-                          f"plain {p:.4f} ms")
+                          f"plain {p:.4f} ms, library {lib:.4f} ms (nchw {layouts['nchw']:.4f}, "
+                          f"channels_last {layouts['channels_last']:.4f}), bound {b_ms:.4f} ms "
+                          f"({by}), kernel at {100 * b_ms / k:.1f}% of the bound")
+        for dt, found in errs.items():
+            print(f"[phase4] {label:8s} {kind:6s} {str(dt):14s} kernel vs twin max |d|: "
+                  + ", ".join(found))
 
     # the net's kernel route against its standard route: the trained hifi
     # net on real tensors, and seeded random weights on random int8 (the
@@ -467,11 +562,14 @@ def phase5_bilstm(torch):
                     check(err <= tol, f"bilstm H={H} B={B} {dt}: {err}")
                     worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
                 if B in TIME_BATCHES:
+                    y = k2.bilstm_recurrence(xw, wh)
                     k = cuda_ms(torch, lambda: k2.bilstm_recurrence(xw, wh), 10)
                     p = cuda_ms(torch, lambda: k2.bilstm_recurrence_reference(xw, wh), 5)
-                    timing[(H, B, str(dt))] = (k, p)
+                    b_ms, by = bound(2 * 33 * 2 * B * H * 4 * H, nbytes(xw, wh, y), dt)
+                    timing[(H, B, str(dt))] = (k, p, b_ms, by)
                     print(f"[phase5] time C={C:3d} H={H} B={B:5d} {str(dt):14s} kernel "
-                          f"{k:.4f} ms, plain {p:.4f} ms")
+                          f"{k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.4f} ms ({by}), kernel "
+                          f"at {100 * b_ms / k:.1f}% of the bound")
 
     # the kernel's module path: BiLSTM(use_kernel=True) at both layer shapes
     mods = []
@@ -494,7 +592,51 @@ def phase5_bilstm(torch):
             check(err <= K2_F32_TOL, f"BiLSTM kernel route: {err}")
     print(f"[phase5] BiLSTM(use_kernel=True) run: bilstm kernel launches {launches}")
     check(launches == len(mods), f"the BiLSTM module path launched the kernel {launches} times")
-    return timing, worst, launches
+
+    # the library call: torch.nn.LSTM(bidirectional=True) (cuDNN) with the
+    # module's weights, timed against the module (its projection + K2)
+    library = {}
+    with torch.inference_mode():
+        for mod, x in mods:
+            C, H = mod.wi.shape[1], mod.wh.shape[1]
+            lstm = lstm_like(torch, mod)
+            err = (lstm(x)[0] - mod(x)).abs().max().item()
+            print(f"[phase5] nn.LSTM(bidirectional) C={C} H={H} B=1000 f32 vs "
+                  f"BiLSTM(use_kernel=True) max |d| {err:.3g}")
+            check(err <= LSTM_LIB_TOL, f"nn.LSTM with the module's weights: {err}")
+            for B in TIME_BATCHES:
+                xb = torch.from_numpy(rng.randn(B, 33, C).astype(np.float32)).to(DEVICE)
+                for dt in (f32, bf16):
+                    m, lib = copy.deepcopy(mod).to(dt), copy.deepcopy(lstm).to(dt)
+                    lib.flatten_parameters()
+                    xd = xb.to(dt)
+                    mod_ms = cuda_ms(torch, lambda: m(xd), 10)
+                    try:
+                        lib_ms = cuda_ms(torch, lambda: lib(xd), 10)
+                    except RuntimeError as exc:  # no cuDNN LSTM at this dtype
+                        print(f"[phase5] nn.LSTM at {dt}: {exc}")
+                        lib_ms = None
+                    library[(H, B, str(dt))] = (mod_ms, lib_ms)
+                    print(f"[phase5] time C={C:3d} H={H} B={B:5d} {str(dt):14s} "
+                          f"BiLSTM(use_kernel=True) {mod_ms:.4f} ms, nn.LSTM (library) "
+                          + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms"))
+    return timing, worst, launches, library
+
+
+def lstm_like(torch, mod):
+    """``torch.nn.LSTM(bidirectional=True, batch_first=True)`` holding the
+    weights of ``ops.lstm.BiLSTM`` ``mod``: slot 0 forward, slot 1
+    reverse, gate order i, f, g, o in both, the folded bias as bias_ih."""
+    C, H = mod.wi.shape[1], mod.wh.shape[1]
+    lstm = torch.nn.LSTM(C, H, batch_first=True, bidirectional=True).to(mod.wi.device)
+    with torch.no_grad():
+        for d, sfx in ((0, ""), (1, "_reverse")):
+            getattr(lstm, f"weight_ih_l0{sfx}").copy_(mod.wi[d].T)
+            getattr(lstm, f"weight_hh_l0{sfx}").copy_(mod.wh[d].T)
+            getattr(lstm, f"bias_ih_l0{sfx}").copy_(mod.b[d])
+            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    lstm.flatten_parameters()
+    return lstm.eval()
 
 
 def main() -> int:
@@ -505,16 +647,17 @@ def main() -> int:
         print("[chip_smoke] no CUDA device: this check runs only on a GPU",
               file=sys.stderr)
         return 2
-    import scripts.full_cascade_demo as demo
-    from clair3_tpu.decode import shutdown_decode_pool
-    from clair3_tpu.fullalign.extractor import create_fa_tensors
-    from clair3_tpu.pileup.extractor import create_pileup_tensors
-    from clair3_tpu.testing import trained_fixture_path
+    from concurrent.futures import ThreadPoolExecutor
+
+    from clair3_tpu_torch import native as host_native
     from clair3_tpu_torch.cli import load_model
+    from clair3_tpu_torch.decode import shutdown_decode_pool
+    from clair3_tpu_torch.fullalign.extractor import create_fa_tensors
     from clair3_tpu_torch.models import PileupNet
     from clair3_tpu_torch.models.bridge import from_jax_variables
     from clair3_tpu_torch.ops import _build
-    from clair3_tpu_torch.testing import random_variables
+    from clair3_tpu_torch.pileup.extractor import create_pileup_tensors
+    from clair3_tpu_torch.testing import random_variables, simulate, trained_fixture_path
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -528,19 +671,27 @@ def main() -> int:
     print(f"[chip_smoke] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    def timed_native_build():
+        t_start = time.time()
+        return host_native._build(), time.time() - t_start
+
     t0 = time.time()
-    lib_path = _build.build()
-    print(f"[phase1] built {os.path.relpath(lib_path)} in {time.time() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds:.2f} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line or "entry function" in line:
-            print(f"[phase1] {line.strip()}")
+    with ThreadPoolExecutor(max_workers=1) as pool:  # g++ beside the nvcc jobs
+        native_build = pool.submit(timed_native_build)
+        lib_path = _build.build()
+        print(f"[phase1] built {os.path.relpath(lib_path)} in {time.time() - t0:.2f} s "
+              f"(nvcc {_build.build_seconds:.2f} s)")
+        so_path, so_seconds = native_build.result()
+    print(f"[phase1] built the native host library {os.path.relpath(so_path)} in "
+          f"{so_seconds:.2f} s (g++)")
+    check(host_native.native_available(), "the port's native host library does not load")
+    print_ptxas_report(_build.build_log)
     _build.load_library()
 
     try:
         with tempfile.TemporaryDirectory() as work:
             t0 = time.time()
-            fasta, bam, _, variants = demo.simulate(work, EVAL_BP, seed=EVAL_SEED)
+            fasta, bam, _, variants = simulate(work, EVAL_BP, seed=EVAL_SEED)
             real, cands, _, _ = create_pileup_tensors(bam, fasta, "chr1", 1, EVAL_BP)
             # FA tensors of the first 1024 candidates ("chr1:<pos>:<base>")
             positions = [int(str(c).split(":")[1]) for c in cands[:1024]]
@@ -562,32 +713,37 @@ def main() -> int:
             launches = phase3_cascade(torch, work, fasta, bam, variants)
             with torch.inference_mode():
                 k3_timing, k3_worst = phase4_fa_conv1(torch, np.asarray(real_fa))
-            k2_timing, k2_worst, k2_launches = phase5_bilstm(torch)
+            k2_timing, k2_worst, k2_launches, k2_library = phase5_bilstm(torch)
     finally:
         shutdown_decode_pool()
 
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax"))
+    blocked = ("jax", "flax", "optax", "clair3_tpu")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
     check(not loaded, f"the port loaded {loaded[:5]}")
     bf16 = str(torch.bfloat16)
-    k_ms, p_ms = timing[(max(BATCHES), bf16)]
-    k3_ms, k3_plain = k3_timing[("hifi", max(TIME_BATCHES), bf16)]
-    k2_ms, k2_plain = k2_timing[(K2_SHAPES[0][1], max(TIME_BATCHES), bf16)]
+    k_ms, p_ms, k_bound, k_by = timing[(max(BATCHES), bf16)]
+    k3_ms, k3_plain, k3_lib, k3_bound, k3_by = k3_timing[("hifi", max(K3_TIME_BATCHES), bf16)]
+    k2_ms, k2_plain, k2_bound, k2_by = k2_timing[(K2_SHAPES[0][1], max(TIME_BATCHES), bf16)]
+    k2_lib = k2_library[(K2_SHAPES[0][1], max(TIME_BATCHES), bf16)][1]
     record = {"kernels": [
         {"name": "pileup_full", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/pileup_full.cu",
          "replaces": "clair3_tpu/ops/pallas_pileup.py:267",
          "launches": launches["bf16"]["pileup_full"], "max_abs_err": worst[bf16],
-         "ms": k_ms, "plain_ms": p_ms},
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": k_bound, "bound_by": k_by,
+         "library_ms": None},
         {"name": "fa_conv1", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/fa_conv1.cu",
          "replaces": "clair3_tpu/ops/pallas_fa.py:101",
          "launches": launches["bf16+fa_conv1"]["fa_conv1"], "max_abs_err": k3_worst[bf16],
-         "ms": k3_ms, "plain_ms": k3_plain},
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": k3_lib},
         {"name": "bilstm", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/bilstm.cu",
          "replaces": "clair3_tpu/ops/pallas_lstm.py:60",
          "launches": k2_launches, "max_abs_err": k2_worst[bf16],
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": k2_lib},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clair3_tpu.config import FA_CHANNEL_SIZE, FA_NORMALIZE_NUM
+from clair3_tpu_torch.config import FA_CHANNEL_SIZE, FA_NORMALIZE_NUM
 from clair3_tpu_torch.models.layers import HEAD_NAMES, HEAD_SIZES, Dense
 from clair3_tpu_torch.ops.fa_conv1 import fa_conv1
 

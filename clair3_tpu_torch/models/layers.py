@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from clair3_tpu.config import (
+from clair3_tpu_torch.config import (
     GENOTYPE_LABEL_COUNT,
     GT21_LABEL_COUNT,
     VARIANT_LENGTH_LABEL_COUNT,

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clair3_tpu.config import NO_OF_POSITIONS, PILEUP_CHANNEL_SIZE
+from clair3_tpu_torch.config import NO_OF_POSITIONS, PILEUP_CHANNEL_SIZE
 from clair3_tpu_torch.models.layers import HEAD_NAMES, HEAD_SIZES, Dense
 from clair3_tpu_torch.ops.lstm import BiLSTM
 from clair3_tpu_torch.ops.pileup_full import pileup_full

@@ -19,24 +19,16 @@ A pack that returns ``None`` leaves the batch dense (int16 pileup, int8
 full alignment).  With ``depth_crop`` only the centred band of non-empty
 depth rows crosses, and the device pads it back to the full depth.  Every
 form is an exact re-encoding of the batch, rebuilt on the device before
-the net (``ops/pileup_compact.py``, ``ops/fa_compact.py``).  The packers
-are the JAX package's own numpy and native code.  Their modules
-(``clair3_tpu/ops/{fa,pileup}_compact.py``) import only numpy, but their
-package's ``__init__`` imports jax: unless jax is already loaded, they are
-loaded from their files without it (``_jax_free_module``), so the port
-never loads jax, as ``pipeline/call.py`` does for the pipeline.
+the net (``ops/pileup_compact.py``, ``ops/fa_compact.py``, which also hold
+the host packers, numpy and native).
 
-The pileup high-coverage rescale (``rescale_high_coverage_pileup``) is a
-jax-free copy of the JAX engine's, so the pipeline can run where jax is not
-installed.
+The pileup high-coverage rescale (``rescale_high_coverage_pileup``) is the
+JAX engine's, copied; ``pipeline/call.py`` takes it from here.
 """
 
 from __future__ import annotations
 
-import importlib
-import importlib.util
 import os
-import sys
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from clair3_tpu_torch.ops import fa_compact as _fa_compact
+from clair3_tpu_torch.ops import pileup_compact as _pileup_compact
 from clair3_tpu_torch.ops.fa_compact import unpack_fa_sparse_torch, unpack_fa_torch
 from clair3_tpu_torch.ops.pileup_compact import unpack_pileup_torch
 
@@ -52,25 +46,6 @@ _EMPTY = np.zeros((0, 90), np.float32)
 _TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8,
                 np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
                 np.dtype(np.float32): torch.float32}
-
-
-def _jax_free_module(name: str):
-    """Import ``name``, a numpy-only module of the JAX package, without
-    running ``clair3_tpu/ops/__init__.py`` (which imports jax) unless jax
-    is already loaded."""
-    if "jax" in sys.modules or name in sys.modules:
-        return importlib.import_module(name)
-    import clair3_tpu
-
-    path = os.path.join(os.path.dirname(clair3_tpu.__file__), *name.split(".")[1:]) + ".py"
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-_fa_compact = _jax_free_module("clair3_tpu.ops.fa_compact")
-_pileup_compact = _jax_free_module("clair3_tpu.ops.pileup_compact")
 
 # how a batch crosses: the dense tensor or one of the packed forms
 DENSE, FA_SPARSE, FA_V1, PILEUP_COMPACT = "dense", "fa_sparse", "fa_v1", "pileup_compact"
@@ -159,8 +134,8 @@ class InferenceEngine:
         if (chunk.dtype != np.int8 or not chunk.flags.c_contiguous
                 or os.environ.get("CLAIR3T_VERIFY_PACK")):
             return None
-        from clair3_tpu.native import (fa_band_native, fa_pack_sparse_native,
-                                       pack_native_available)
+        from clair3_tpu_torch.native import (fa_band_native, fa_pack_sparse_native,
+                                             pack_native_available)
 
         if not pack_native_available():
             return None

@@ -2,10 +2,12 @@
 package, both at f32 on the CPU with the committed hifi nets.
 
 A ~20 kb hifi region (the generator of tests/test_trained_fixture_cascade.py,
-held-out seed 91) is called twice: through the JAX InferenceEngine, and
-through `python -m clair3_tpu_torch call --device cpu`.  Extraction,
-decode, routing, phasing and merge are shared code, so a difference can only
-come from the nets or the engines.  The rows must be numerically
+held-out seed 91) is called twice: through the JAX package's VariantCaller
+and InferenceEngine, and through `python -m clair3_tpu_torch call --device
+cpu`, which runs the port's own copies of extraction, decode, routing,
+phasing and merge (held equal to the originals by test_torch_copies.py)
+and its own native library.  So a difference can only come from the nets or
+the engines.  The rows must be numerically
 equivalent with no routing flip (testing.vcf_rows_numerically_equivalent,
 flip_budget 0): QUAL is printed %.2f, so a 1e-6 probability difference may
 move its last digit and byte identity is not the bound.
@@ -24,6 +26,7 @@ from clair3_tpu.pipeline.engine import InferenceEngine
 from clair3_tpu.testing import (load_trained_fixture, trained_fixture_path,
                                 vcf_rows_numerically_equivalent)
 from clair3_tpu_torch.cli import main as port_main
+from clair3_tpu_torch.testing import simulate
 
 EVAL_BP = 20_000
 EVAL_SEED = 91
@@ -38,10 +41,8 @@ def _rows(path):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    import scripts.full_cascade_demo as demo
-
     tmp = tmp_path_factory.mktemp("port_cascade")
-    fasta, bam, _, _ = demo.simulate(str(tmp), EVAL_BP, seed=EVAL_SEED)
+    fasta, bam, _, _ = simulate(str(tmp), EVAL_BP, seed=EVAL_SEED)
 
     jax_out = str(tmp / "jax")
     engines = dict(

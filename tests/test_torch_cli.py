@@ -4,7 +4,7 @@ are not ported yet (exit 1 with a message, before any input is read)."""
 import pytest
 import torch
 
-from clair3_tpu.testing import trained_fixture_path
+from clair3_tpu_torch.testing import trained_fixture_path
 from clair3_tpu_torch.cli import main, resolve_compute_dtype, resolve_device
 
 CPU = torch.device("cpu")

@@ -1,8 +1,8 @@
 """The compact wire forms and the FA depth crop in the port.
 
 * ``unpack_*_torch`` rebuild what the JAX package's ``unpack_*_numpy``
-  rebuild from the same packs, bit for bit (the packers are the JAX
-  package's own);
+  rebuild from the same packs, bit for bit, and the port's copies of the
+  packers pack as the JAX package's do;
 * the port's engine with ``depth_crop``/``fa_compact``/``pileup_compact``
   returns what its net returns on the dense tensor (atol 1e-6, as
   ``test_torch_engine.py``: rows are independent; only batch-size-dependent
@@ -21,6 +21,8 @@ from clair3_tpu.ops.fa_compact import (K_BUCKETS, pack_fa, pack_fa_sparse,
                                        unpack_fa_numpy, unpack_fa_sparse_numpy)
 from clair3_tpu.ops.pileup_compact import pack_pileup, unpack_pileup_numpy
 from clair3_tpu_torch.models import FullAlignmentNet, PileupNet
+from clair3_tpu_torch.ops import fa_compact as port_fa
+from clair3_tpu_torch.ops import pileup_compact as port_pileup
 from clair3_tpu_torch.models.bridge import from_jax_variables
 from clair3_tpu_torch.ops.fa_compact import unpack_fa_sparse_torch, unpack_fa_torch
 from clair3_tpu_torch.ops.pileup_compact import unpack_pileup_torch
@@ -107,6 +109,28 @@ def test_unpack_fa_sparse_matches_numpy(channels, k):
     np.testing.assert_array_equal(got.numpy(), x)
     noise = np.random.RandomState(3).randint(-100, 101, x.shape).astype(np.int8)
     assert pack_fa_sparse(noise) is None and pack_fa(noise) is None
+
+
+@pytest.mark.parametrize("form", ["pileup", "fa_v1", "fa_sparse8", "fa_sparse9"])
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_port_packers_pack_as_jax(monkeypatch, form, route):
+    """The port's copies of the packers give the JAX package's packs, through
+    the native packer and through the numpy body (CLAIR3T_VERIFY_PACK)."""
+    if route == "numpy":
+        monkeypatch.setenv("CLAIR3T_VERIFY_PACK", "1")
+    if form == "pileup":
+        x = _pileup_batch(5, 40).astype(np.int16)
+        got, want = port_pileup.pack_pileup(x), pack_pileup(x)
+    elif form == "fa_v1":
+        x = _fa_batch(6, 7)
+        got, want = port_fa.pack_fa(x), pack_fa(x)
+    else:
+        x = _fa_batch(7, 7, channels=int(form[-1]))
+        got, want = port_fa.pack_fa_sparse(x), pack_fa_sparse(x)
+    assert got is not None and sorted(got) == sorted(want)
+    for key in got:
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
 
 
 def test_sparse_indices_past_int16_cross_as_int16_bits():

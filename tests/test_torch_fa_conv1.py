@@ -7,6 +7,11 @@ kernel route against the JAX package, on the CPU.
 * ``FullAlignmentNet(use_kernel_conv1=True)`` vs the JAX
   ``FullAlignmentNet(use_pallas_conv1=True)`` at f32, atol 2e-4 (the bound
   of ``test_pallas_fa.py``), through the bridged weights;
+* the bf16 kernel's GEMM form in plain torch at f32: ``im2col`` (the
+  kernel's K order) times ``pack_weights`` (the ``[K, 64]`` matrix the
+  kernel reads), + ``b_eff``, ReLU, equals the twin within 1e-5 (the same
+  exact products, summed in another order), on the four geometries of
+  ``chip_smoke.py`` at B = 1, 11;
 * the loader's guard, with the device in place of the JAX test's faked
   backend.
 """
@@ -19,12 +24,11 @@ import torch
 
 from clair3_tpu.models import FullAlignmentNet as JaxFullAlignmentNet
 from clair3_tpu.ops.pallas_fa import fa_conv1_pallas
-from clair3_tpu.testing import trained_fixture_path
 from clair3_tpu_torch import cli
 from clair3_tpu_torch.models import FullAlignmentNet
 from clair3_tpu_torch.models.bridge import from_jax_variables
 from clair3_tpu_torch.ops import fa_conv1 as k3
-from clair3_tpu_torch.testing import random_variables
+from clair3_tpu_torch.testing import random_variables, trained_fixture_path
 
 CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 
@@ -75,6 +79,30 @@ def test_kernel_route_net_matches_jax(in_ch):
     np.testing.assert_allclose(got, plain, rtol=0, atol=2e-4)
     # bf16 stays within softmax tolerance of f32, as in test_pallas_fa.py
     assert np.abs(got16 - plain).max() < 2e-2
+
+
+@pytest.mark.parametrize("b", [1, 11])
+@pytest.mark.parametrize("d,c", [(55, 8), (89, 9), (89, 8), (55, 9)])
+def test_gemm_form_equals_twin(d, c, b):
+    rs = np.random.RandomState(d * c + b)
+    x = torch.from_numpy(rs.randint(-128, 128, (b, d, 33, c)).astype(np.int8))
+    ops = [torch.from_numpy(o.astype(np.float32)) for o in _operands(rs, c)]
+    w_eff, b_eff = k3.fold_bn(*ops, 1e-3, 100.0, torch.float32)
+    packed = k3.pack_weights(w_eff)
+    assert packed.shape == ((80 if c == 8 else 96), 64)
+    # the padding rows are zero: tap 9 of the two-tap steps, taps 9..15 of
+    # the channel-8 step
+    assert not packed[72:80].any() and (c == 8 or not packed[89:].any())
+    cols = k3.im2col(x)
+    assert cols.shape == (b, -(-d // 2), 17, packed.shape[0])
+    got = torch.relu(cols @ packed + b_eff)
+    want = k3.fa_conv1_reference(x, *ops, compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+def test_pack_weights_takes_8_or_9_channels():
+    with pytest.raises(ValueError, match="8 or 9 channels"):
+        k3.pack_weights(torch.zeros(3, 3, 7, 64))
 
 
 def test_guard_truth_table(monkeypatch):

@@ -14,7 +14,6 @@ import numpy as np
 import pytest
 import torch
 
-from clair3_tpu.testing import trained_fixture_path
 from clair3_tpu_torch.cli import load_model
 from clair3_tpu_torch.models import PileupNet
 from clair3_tpu_torch.models.bridge import from_jax_variables
@@ -22,7 +21,8 @@ from clair3_tpu_torch.ops import bilstm as k2
 from clair3_tpu_torch.ops import fa_conv1 as k3
 from clair3_tpu_torch.ops import pileup_full as pf
 from clair3_tpu_torch.ops.lstm import BiLSTM, bilstm
-from clair3_tpu_torch.testing import bf16_ulps, random_counts, random_variables
+from clair3_tpu_torch.testing import (bf16_ulps, random_counts, random_variables,
+                                      trained_fixture_path)
 
 pytestmark = pytest.mark.cuda
 

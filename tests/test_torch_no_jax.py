@@ -1,8 +1,10 @@
-"""The port never loads jax, flax or optax: `python -m clair3_tpu_torch call
---device cpu` in a subprocess, on the 3 kb case of the verify recipe with
-the committed hifi nets, once where the import system refuses those
-packages (a host without them) and once where they are importable (a GPU
-host may have jax installed; the port must still not load it)."""
+"""The port never loads jax, flax, optax or the JAX package `clair3_tpu`:
+`python -m clair3_tpu_torch call --device cpu` in a subprocess, on the 3 kb
+case of the verify recipe with the committed hifi nets, once where the
+import system refuses those packages (a host without them) and once where
+they are importable (a GPU host may have jax installed; the port must
+still not load it).  The refusal matches the top-level name exactly, so
+`clair3_tpu_torch` itself loads."""
 
 import gzip
 import os
@@ -12,7 +14,7 @@ import textwrap
 
 import pytest
 
-from clair3_tpu.testing import SimVariant, random_reference, trained_fixture_path, write_test_case
+from clair3_tpu_torch.testing import SimVariant, random_reference, trained_fixture_path, write_test_case
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,7 +22,7 @@ _DRIVER = textwrap.dedent("""
     import runpy
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "clair3_tpu")
     attempts = []
 
     class Refuse:
