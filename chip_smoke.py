@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch port (clair3_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase, ends with the ok line
+    python3 chip_smoke.py --phases 1,5   # the build and the named phases only
 
 Needs one CUDA device, nvcc, g++ and the repository's sources; exits
 non-zero without them.  Imports only the port: it loads neither jax, flax
@@ -65,20 +66,27 @@ Phase 4  holds the FA conv1 kernel against its plain twin
          batch already cast to the compute dtype, + relu_, cuDNN; the
          faster of NCHW and channels_last) beside the bound at B = 1024,
          2048, 4096.
-Phase 5  holds the BiLSTM recurrence kernel against its plain twin
+Phase 5  holds the BiLSTM recurrence kernel against its plain twins
          (ops/bilstm.py) at the pileup net's two layer shapes (C=18, H=128;
-         C=256, H=160), B = 256, 1000, 4096, random xw and wh x 0.1: f32
-         within 1e-5, bf16 within 1e-2; drives BiLSTM(use_kernel=True) (the
-         kernel's module path) against the plain bilstm at f32 within 1e-5
-         and against torch.nn.LSTM(bidirectional=True) (cuDNN) with the
-         same weights within 1e-4; times kernel and twin beside the bound,
-         and the module against nn.LSTM (the library call), at B = 1024,
-         4096.
+         C=256, H=160), B = 256, 1000, 4096, random xw and wh x 0.1, in both
+         layouts (the TPU one, [T, 2, B, 4H] -> [T, 2, B, H], and the
+         module's batch-major one, [B, T, 8H] -> [B, T, 2H], read and
+         written by strides): f32 (SIMT kernel) within 1e-5, bf16
+         (tensor-core kernel) within 1e-2; drives BiLSTM(use_kernel=True)
+         (the kernel's module path: one addmm, one launch) at f32 against
+         the plain bilstm within 1e-5 and at bf16 against its twin within
+         1e-2, and against torch.nn.LSTM(bidirectional=True) (cuDNN) with
+         the same weights within 1e-4; times the kernel in both layouts and
+         the twin beside the bound, and the module against nn.LSTM (the
+         library call), at B = 1024, 4096, f32 and bf16.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+With --phases (a comma-separated subset of 1-5) only those phases run (the
+kernels are built in any case) and the script ends without the kernels'
+record and the ok line.  Otherwise the line before the last is the kernels'
+JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
+import argparse
 import copy
 import gzip
 import json
@@ -110,6 +118,7 @@ EVAL_SEED = 91
 GATE_SNP_F1 = 0.990
 GATE_INDEL_F1 = 0.992
 DEVICE = "cuda"
+PHASES = (1, 2, 3, 4, 5)
 CALL_ARGS = ["--platform", "hifi", "--indel_min_af", "0.12", "--threads", "4",
              "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
 
@@ -136,7 +145,7 @@ def print_ptxas_report(log):
     """One line per kernel of the ptxas report: registers and spills."""
     name, spills = "?", ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?((?:pileup_full|bilstm|fa_conv1_tc|fa_conv1)"
+        m = re.search(r"Compiling entry function '\w*?((?:pileup_full|bilstm_tc|bilstm|fa_conv1_tc|fa_conv1)"
                       r"_kernel)(?:I(13__nv_bfloat16|f|Li(\d+)E))?", line)
         if m:
             arg = {"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(2), m.group(3))
@@ -534,6 +543,19 @@ def phase4_fa_conv1(torch, real_fa):
     return timing, worst
 
 
+def module_twin(torch, mod, x):
+    """BiLSTM(use_kernel=True)'s route with the kernel's plain twin: the same
+    addmm, then the batch-major twin."""
+    from clair3_tpu_torch.ops import bilstm as k2
+
+    B, T, C = x.shape
+    dt = x.dtype
+    wi = mod.wi.to(dt)
+    xw = torch.addmm(mod.b.to(dt).reshape(-1), x.reshape(B * T, C),
+                     torch.cat([wi[0], wi[1]], dim=1))
+    return k2.bilstm_batch_major_reference(xw.view(B, T, -1), mod.wh.to(dt))
+
+
 def phase5_bilstm(torch):
     import numpy as np
 
@@ -543,35 +565,41 @@ def phase5_bilstm(torch):
     f32, bf16 = torch.float32, torch.bfloat16
     rng = np.random.RandomState(51)
     worst, timing = {}, {}
+    layouts = (("tpu", k2.bilstm_recurrence, k2.bilstm_recurrence_reference),
+               ("batch-major", k2.bilstm_batch_major, k2.bilstm_batch_major_reference))
     for C, H in K2_SHAPES:
         wh32 = torch.from_numpy((rng.randn(2, H, 4 * H) * 0.1).astype(np.float32)).to(DEVICE)
         for B in sorted(set(K2_BATCHES + TIME_BATCHES)):
             xw32 = torch.from_numpy(rng.randn(33, 2, B, 4 * H).astype(np.float32)).to(DEVICE)
+            inputs = {"tpu": xw32, "batch-major": xw32.view(33, B, 8 * H).transpose(0, 1)
+                      .contiguous()}
             for dt, tol in ((f32, K2_F32_TOL), (bf16, K2_BF16_TOL)):
-                xw, wh = xw32.to(dt), wh32.to(dt)
-                if B in K2_BATCHES:
-                    got = k2.bilstm_recurrence(xw, wh)
-                    torch.cuda.synchronize()
-                    want = k2.bilstm_recurrence_reference(xw, wh)
-                    check(got.shape == want.shape == (33, 2, B, H)
-                          and bool(torch.isfinite(got.float()).all()),
-                          f"bilstm H={H} B={B} {dt}: shape or non-finite output")
-                    err = (got.float() - want.float()).abs().max().item()
-                    print(f"[phase5] C={C:3d} H={H} B={B:5d} {str(dt):14s} kernel vs twin "
-                          f"max |d| {err:.3g}")
-                    check(err <= tol, f"bilstm H={H} B={B} {dt}: {err}")
-                    worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
-                if B in TIME_BATCHES:
-                    y = k2.bilstm_recurrence(xw, wh)
-                    k = cuda_ms(torch, lambda: k2.bilstm_recurrence(xw, wh), 10)
-                    p = cuda_ms(torch, lambda: k2.bilstm_recurrence_reference(xw, wh), 5)
-                    b_ms, by = bound(2 * 33 * 2 * B * H * 4 * H, nbytes(xw, wh, y), dt)
-                    timing[(H, B, str(dt))] = (k, p, b_ms, by)
-                    print(f"[phase5] time C={C:3d} H={H} B={B:5d} {str(dt):14s} kernel "
-                          f"{k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.4f} ms ({by}), kernel "
-                          f"at {100 * b_ms / k:.1f}% of the bound")
+                wh = wh32.to(dt)
+                for layout, kernel, twin in layouts:
+                    xw = inputs[layout].to(dt)
+                    if B in K2_BATCHES:
+                        got = kernel(xw, wh)
+                        torch.cuda.synchronize()
+                        want = twin(xw, wh)
+                        check(got.shape == want.shape and bool(torch.isfinite(got.float()).all()),
+                              f"bilstm {layout} H={H} B={B} {dt}: shape or non-finite output")
+                        err = (got.float() - want.float()).abs().max().item()
+                        print(f"[phase5] C={C:3d} H={H} B={B:5d} {str(dt):14s} {layout:11s} "
+                              f"kernel vs twin max |d| {err:.3g}")
+                        check(err <= tol, f"bilstm {layout} H={H} B={B} {dt}: {err}")
+                        worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
+                    if B in TIME_BATCHES:
+                        y = kernel(xw, wh)
+                        k = cuda_ms(torch, lambda: kernel(xw, wh), 10)
+                        p = cuda_ms(torch, lambda: twin(xw, wh), 3)
+                        b_ms, by = bound(2 * 33 * 2 * B * H * 4 * H, nbytes(xw, wh, y), dt)
+                        timing[(layout, H, B, str(dt))] = (k, p, b_ms, by)
+                        print(f"[phase5] time C={C:3d} H={H} B={B:5d} {str(dt):14s} {layout:11s} "
+                              f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                              f"kernel at {100 * b_ms / k:.1f}% of the bound")
 
-    # the kernel's module path: BiLSTM(use_kernel=True) at both layer shapes
+    # the kernel's module path: BiLSTM(use_kernel=True) at both layer shapes,
+    # f32 (SIMT route) and bf16 (tensor-core route)
     mods = []
     for C, H in K2_SHAPES:
         mod = BiLSTM(C, H, use_kernel=True)
@@ -580,21 +608,28 @@ def phase5_bilstm(torch):
                 p.copy_(torch.from_numpy(rng.randn(*p.shape) * scale))
         x = torch.from_numpy(rng.randn(1000, 33, C).astype(np.float32)).to(DEVICE)
         mods.append((mod.to(DEVICE), x))
+    runs = [(mod, x, f32) for mod, x in mods] + [
+        (copy.deepcopy(mod).to(bf16), x.to(bf16), bf16) for mod, x in mods]
     k2.launches = 0
     with torch.inference_mode():
-        outs = [mod(x) for mod, x in mods]
+        outs = [mod(x) for mod, x, _ in runs]
         torch.cuda.synchronize()
         launches = k2.launches
-        for (mod, x), got in zip(mods, outs):
-            err = (got - bilstm(x, mod.wi, mod.wh, mod.b)).abs().max().item()
+        for (mod, x, dt), got in zip(runs, outs):
+            if dt == f32:
+                err = (got - bilstm(x, mod.wi, mod.wh, mod.b)).abs().max().item()
+                tol, what = K2_F32_TOL, "plain bilstm"
+            else:
+                err = (got.float() - module_twin(torch, mod, x).float()).abs().max().item()
+                tol, what = K2_BF16_TOL, "its twin"
             print(f"[phase5] BiLSTM(use_kernel=True) C={mod.wi.shape[1]} H={mod.wh.shape[1]} "
-                  f"B=1000 f32 vs plain bilstm max |d| {err:.3g}")
-            check(err <= K2_F32_TOL, f"BiLSTM kernel route: {err}")
-    print(f"[phase5] BiLSTM(use_kernel=True) run: bilstm kernel launches {launches}")
-    check(launches == len(mods), f"the BiLSTM module path launched the kernel {launches} times")
+                  f"B=1000 {str(dt):14s} vs {what} max |d| {err:.3g}")
+            check(err <= tol, f"BiLSTM kernel route {dt}: {err}")
+    print(f"[phase5] BiLSTM(use_kernel=True) runs: bilstm kernel launches {launches}")
+    check(launches == len(runs), f"the BiLSTM module path launched the kernel {launches} times")
 
     # the library call: torch.nn.LSTM(bidirectional=True) (cuDNN) with the
-    # module's weights, timed against the module (its projection + K2)
+    # module's weights, timed against the module (its addmm + K2)
     library = {}
     with torch.inference_mode():
         for mod, x in mods:
@@ -639,10 +674,36 @@ def lstm_like(torch, mod):
     return lstm.eval()
 
 
-def main() -> int:
+def setup(work):
+    """The simulated phase-3 region, its pileup tensors and the FA tensors
+    of its first 1024 candidates."""
+    from clair3_tpu_torch.fullalign.extractor import create_fa_tensors
+    from clair3_tpu_torch.pileup.extractor import create_pileup_tensors
+    from clair3_tpu_torch.testing import simulate
+
+    t0 = time.time()
+    fasta, bam, _, variants = simulate(work, EVAL_BP, seed=EVAL_SEED)
+    real, cands, _, _ = create_pileup_tensors(bam, fasta, "chr1", 1, EVAL_BP)
+    # FA tensors of the first 1024 candidates ("chr1:<pos>:<base>")
+    positions = [int(str(c).split(":")[1]) for c in cands[:1024]]
+    real_fa, _, _ = create_fa_tensors(bam, fasta, "chr1", positions, matrix_depth=55,
+                                      no_phasing=True)
+    print(f"[setup] simulated {EVAL_BP} bp, {len(variants)} variants, "
+          f"{len(real)} pileup candidates, FA tensors {tuple(real_fa.shape)} "
+          f"in {time.time() - t0:.2f} s")
+    return fasta, bam, variants, real, real_fa
+
+
+def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description="chip check of clair3_tpu_torch on one GPU")
+    ap.add_argument("--phases", default=",".join(map(str, PHASES)),
+                    help="comma-separated phases to run (default: all); the kernels are "
+                         "built in any case, and a subset ends without the ok line")
+    phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
+    check(phases <= set(PHASES), f"--phases: no phase {sorted(phases - set(PHASES))}")
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: this check runs only on a GPU",
               file=sys.stderr)
@@ -652,12 +713,10 @@ def main() -> int:
     from clair3_tpu_torch import native as host_native
     from clair3_tpu_torch.cli import load_model
     from clair3_tpu_torch.decode import shutdown_decode_pool
-    from clair3_tpu_torch.fullalign.extractor import create_fa_tensors
     from clair3_tpu_torch.models import PileupNet
     from clair3_tpu_torch.models.bridge import from_jax_variables
     from clair3_tpu_torch.ops import _build
-    from clair3_tpu_torch.pileup.extractor import create_pileup_tensors
-    from clair3_tpu_torch.testing import random_variables, simulate, trained_fixture_path
+    from clair3_tpu_torch.testing import random_variables, trained_fixture_path
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -690,41 +749,40 @@ def main() -> int:
 
     try:
         with tempfile.TemporaryDirectory() as work:
-            t0 = time.time()
-            fasta, bam, _, variants = simulate(work, EVAL_BP, seed=EVAL_SEED)
-            real, cands, _, _ = create_pileup_tensors(bam, fasta, "chr1", 1, EVAL_BP)
-            # FA tensors of the first 1024 candidates ("chr1:<pos>:<base>")
-            positions = [int(str(c).split(":")[1]) for c in cands[:1024]]
-            real_fa, _, _ = create_fa_tensors(bam, fasta, "chr1", positions, matrix_depth=55,
-                                              no_phasing=True)
-            print(f"[setup] simulated {EVAL_BP} bp, {len(variants)} variants, "
-                  f"{len(real)} pileup candidates, FA tensors {tuple(real_fa.shape)} "
-                  f"in {time.time() - t0:.2f} s")
-
-            dev = torch.device(DEVICE)
-            hifi = load_model(trained_fixture_path("pileup_hifi.npz"), "pileup", dev,
-                              torch.float32)
-            rand4 = PileupNet(add_indel_length=True)
-            rand4.load_state_dict(from_jax_variables(random_variables(rand4, seed=5)))
-            rand4 = rand4.to(dev).eval()
-            with torch.inference_mode():
-                timing, worst = phase2_kernel_vs_plain(
-                    torch, [("hifi", hifi), ("random4", rand4)], np.asarray(real))
-            launches = phase3_cascade(torch, work, fasta, bam, variants)
-            with torch.inference_mode():
-                k3_timing, k3_worst = phase4_fa_conv1(torch, np.asarray(real_fa))
-            k2_timing, k2_worst, k2_launches, k2_library = phase5_bilstm(torch)
+            if phases & {2, 3, 4}:
+                fasta, bam, variants, real, real_fa = setup(work)
+            if 2 in phases:
+                dev = torch.device(DEVICE)
+                hifi = load_model(trained_fixture_path("pileup_hifi.npz"), "pileup", dev,
+                                  torch.float32)
+                rand4 = PileupNet(add_indel_length=True)
+                rand4.load_state_dict(from_jax_variables(random_variables(rand4, seed=5)))
+                rand4 = rand4.to(dev).eval()
+                with torch.inference_mode():
+                    timing, worst = phase2_kernel_vs_plain(
+                        torch, [("hifi", hifi), ("random4", rand4)], np.asarray(real))
+            if 3 in phases:
+                launches = phase3_cascade(torch, work, fasta, bam, variants)
+            if 4 in phases:
+                with torch.inference_mode():
+                    k3_timing, k3_worst = phase4_fa_conv1(torch, np.asarray(real_fa))
+            if 5 in phases:
+                k2_timing, k2_worst, k2_launches, k2_library = phase5_bilstm(torch)
     finally:
         shutdown_decode_pool()
 
     blocked = ("jax", "flax", "optax", "clair3_tpu")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
     check(not loaded, f"the port loaded {loaded[:5]}")
+    if phases != set(PHASES):
+        print(f"[chip_smoke] phases {sorted(phases)} passed; no record without every phase")
+        return 0
     bf16 = str(torch.bfloat16)
     k_ms, p_ms, k_bound, k_by = timing[(max(BATCHES), bf16)]
     k3_ms, k3_plain, k3_lib, k3_bound, k3_by = k3_timing[("hifi", max(K3_TIME_BATCHES), bf16)]
-    k2_ms, k2_plain, k2_bound, k2_by = k2_timing[(K2_SHAPES[0][1], max(TIME_BATCHES), bf16)]
-    k2_lib = k2_library[(K2_SHAPES[0][1], max(TIME_BATCHES), bf16)][1]
+    k2_key = (K2_SHAPES[0][1], max(TIME_BATCHES), bf16)
+    k2_ms, k2_plain, k2_bound, k2_by = k2_timing[("tpu",) + k2_key]
+    k2_module, k2_lib = k2_library[k2_key]
     record = {"kernels": [
         {"name": "pileup_full", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/pileup_full.cu",
@@ -743,7 +801,7 @@ def main() -> int:
          "replaces": "clair3_tpu/ops/pallas_lstm.py:60",
          "launches": k2_launches, "max_abs_err": k2_worst[bf16],
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": k2_lib},
+         "library_ms": k2_lib, "module_ms": k2_module},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

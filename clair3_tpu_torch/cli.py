@@ -4,12 +4,14 @@ The argument surface is ``clair3_tpu.cli._add_call_args`` plus ``--device``
 (the counterpart of ``JAX_PLATFORMS``).  That function, the input
 validation, the model-file resolution and the dwell-channel reconciliation
 are copies of the JAX CLI's framework-free helpers (held equal to them by
-``tests/test_torch_copies.py``).  ``--device cuda`` (the default) raises
-when no GPU is present: there is no silent CPU path.
+``tests/test_torch_copies.py``).  ``cmd_call`` checks model-zoo names and
+probes the BAM for move tables in the JAX CLI's order, before any engine
+loads.  ``--device cuda`` (the default) raises when no GPU is present:
+there is no silent CPU path.
 
-Not yet ported (exit 1 with a message): ``.pt`` checkpoints, model-zoo
-names, ``--remote_engines``, ``--dist_*``, ``--profile_dir`` and
-whatshap/longphase phasing.
+Not yet ported (exit 1 with a message): ``.pt`` checkpoints,
+``--remote_engines``, ``--dist_*``, ``--profile_dir`` and whatshap/longphase
+phasing.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def _add_call_args(p: argparse.ArgumentParser) -> None:
                    help="TESTING: use tensor-sniffing oracle predictors instead of models")
     p.add_argument("--remote_engines", default=None, metavar="URL",
                    help="run forward passes on a `clair3_tpu_torch serve` engine "
-                        "server (e.g. http://tpu-host:8618); no local "
+                        "server (e.g. http://gpu-host:8618); no local "
                         "models needed")
     p.add_argument("--use_phasing_for_final_output", action="store_true",
                    help="phase the final merged VCF (internal phaser)")
@@ -118,8 +120,8 @@ def _add_call_args(p: argparse.ArgumentParser) -> None:
                    help="also write an HP/PS-tagged BAM (phased_output.bam)")
     p.add_argument("--compute_dtype", default="auto",
                    choices=("auto", "fp32", "bf16"),
-                   help="inference compute dtype; auto = bf16 on TPU "
-                        "(benchmarked production config), fp32 elsewhere")
+                   help="inference compute dtype; auto = bf16 on CUDA, "
+                        "fp32 on the CPU")
     p.add_argument("--output_probabilities_fn", default=None,
                    help="DEBUG: dump raw head probabilities per candidate")
     p.add_argument("--debug", action="store_true",
@@ -127,13 +129,12 @@ def _add_call_args(p: argparse.ArgumentParser) -> None:
                         "to stdout instead of emitting VCF rows "
                         "(reference CallVariants --debug)")
     p.add_argument("--profile_dir", default=None,
-                   help="write a jax.profiler trace of the run to this directory")
+                   help="write a torch.profiler trace of the run to this directory")
     # multi-host (pod slice) execution: every process runs this same
     # command; chunks are strided across processes and each writes
     # {output}/proc{i}; merge the per-process VCFs with `sort_vcf`
     p.add_argument("--dist_coordinator", default=None,
-                   help="coordinator address host:port of process 0 "
-                        "(omit on TPU pod slices with runtime bootstrap)")
+                   help="coordinator address host:port of process 0")
     p.add_argument("--dist_num_processes", type=int, default=None)
     p.add_argument("--dist_process_id", type=int, default=None)
 
@@ -303,8 +304,6 @@ def _not_yet_ported(args) -> Optional[str]:
     if (args.use_whatshap_for_intermediate_phasing
             or args.use_longphase_for_intermediate_phasing):
         return "whatshap/longphase intermediate phasing"
-    if args.model_path and not os.path.isdir(args.model_path):
-        return f"model-zoo names (--model_path {args.model_path})"
     for path in _model_paths(args):
         if path and not path.endswith(".npz"):
             return f".pt checkpoints ({path})"
@@ -332,14 +331,70 @@ def cmd_call(args: argparse.Namespace) -> int:
         print(f"[ERROR] not yet ported to clair3_tpu_torch: {missing}; use "
               "`python -m clair3_tpu call`", file=sys.stderr)
         return 1
+    # the model block of clair3_tpu.cli.cmd_call, in its order: zoo names
+    # are validated, and the mv probe runs, before any input or engine loads
     if args.enable_dwell_time and args.platform != "ont":
+        # reference run_clair3.py:433-437: dwell time is ONT-only
         print("[ERROR] --enable_dwell_time is not supported for non-ONT "
               "platforms", file=sys.stderr)
         return 1
+    dwell_expected = args.enable_dwell_time
+    if args.model_path:
+        from clair3_tpu_torch.models.zoo import (lookup_model, name_implies_dwell,
+                                                 validate_model_choice)
+
+        zoo_info = lookup_model(args.model_path)
+        if zoo_info is not None:
+            err = validate_model_choice(zoo_info, args.platform)
+            if err:
+                print(f"[ERROR] {err}", file=sys.stderr)
+                return 1
+        model_dwell = (zoo_info.dwell if zoo_info is not None
+                       else name_implies_dwell(args.model_path))
+        if model_dwell and args.platform != "ont":
+            # move-table models are ONT-only (reference run_clair3.py:419-425)
+            name = os.path.basename(os.path.normpath(args.model_path))
+            print(f"[ERROR] model '{name}' is a move-table (signal-aware) "
+                  f"model and is ONT-only, but --platform is "
+                  f"'{args.platform}'. Use --platform ont with ONT data, or "
+                  "choose a non move-table model for this platform.",
+                  file=sys.stderr)
+            return 1
+        if zoo_info is not None and (args.var_pct_phasing is None
+                                     and zoo_info.var_pct_phasing is not None):
+            args.var_pct_phasing = zoo_info.var_pct_phasing
+        if model_dwell and not args.enable_dwell_time:
+            name = os.path.basename(os.path.normpath(args.model_path))
+            print(f"[INFO] '{name}' is a signal-aware "
+                  "(*_with_mv) model: the dwell-time channel will be "
+                  "enabled to match its 9-channel input (Clair3 itself "
+                  "requires --enable_dwell_time here); the "
+                  "BAM must carry mv/ts basecaller tags",
+                  file=sys.stderr)
+        dwell_expected = dwell_expected or model_dwell
+
     err = _validate_call_inputs(args)
     if err:
         print(f"[ERROR] {err}", file=sys.stderr)
         return 1
+
+    if dwell_expected and not args.bam_fn.endswith(".cram"):
+        # the reference verifies the first 50 alignments actually carry a
+        # usable mv tag and fails early otherwise (run_clair3.py:442-463):
+        # without it a tagless BAM degrades silently to a zero dwell channel
+        from clair3_tpu_torch.io.bam import probe_mv_tag
+
+        has_mv, mv_no_value, checked = probe_mv_tag(args.bam_fn)
+        if not has_mv:
+            detail = ("an 'mv' tag was found without a valid value"
+                      if mv_no_value else "no valid 'mv' tag was found")
+            print(f"[ERROR] dwell time is enabled but within the first "
+                  f"{checked} alignments {detail}. The 'mv' move table "
+                  "(Dorado --emit-moves) is required for the dwell-time "
+                  "channel; provide a tagged BAM or use a non move-table "
+                  "model / drop --enable_dwell_time.", file=sys.stderr)
+            return 1
+
     if args.debug and not args.pileup_only:
         print("[INFO] --debug suppresses VCF rows, so the full-alignment "
               "stage has no candidates to re-call; implying --pileup_only",
@@ -357,10 +412,13 @@ def cmd_call(args: argparse.Namespace) -> int:
         fa_engine = None if args.pileup_only else FullAlignmentOracleEngine()
     else:
         pileup_path, fa_path = _model_paths(args)
-        if pileup_path is None or (fa_path is None and not args.pileup_only):
-            print("[ERROR] no pileup and full-alignment models given "
-                  "(--model_path, --pileup_model, --full_alignment_model)",
+        if pileup_path is None:
+            print("[ERROR] no pileup model given (--pileup_model / --model_path)",
                   file=sys.stderr)
+            return 1
+        if fa_path is None and not args.pileup_only:
+            print("[ERROR] no full-alignment model given "
+                  "(--full_alignment_model / --model_path)", file=sys.stderr)
             return 1
         dt = resolve_compute_dtype(args.compute_dtype, device)
         pileup_engine = _load_engine(pileup_path, "pileup", device, dt)
@@ -368,17 +426,6 @@ def cmd_call(args: argparse.Namespace) -> int:
         if not args.pileup_only:
             fa_engine = _load_engine(fa_path, "full_alignment", device, dt)
             _reconcile_dwell(fa_engine, cfg)
-
-    if cfg.enable_dwell_time and not cfg.bam_fn.endswith(".cram"):
-        # a BAM without move tables would give a silent all-zero dwell channel
-        from clair3_tpu_torch.io.bam import probe_mv_tag
-
-        has_mv, _, checked = probe_mv_tag(cfg.bam_fn)
-        if not has_mv:
-            print(f"[ERROR] dwell time is enabled but none of the first "
-                  f"{checked} alignments carries a valid 'mv' tag",
-                  file=sys.stderr)
-            return 1
 
     phaser = None
     if fa_engine is not None and not cfg.no_phasing_for_fa:

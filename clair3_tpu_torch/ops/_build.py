@@ -103,7 +103,8 @@ def load_library() -> ctypes.CDLL:
             lib.clair3t_pileup_full.restype = i
             lib.clair3t_fa_conv1.argtypes = [i, i] + [vp] * 4 + [i] * 5 + [vp]
             lib.clair3t_fa_conv1.restype = i
-            lib.clair3t_bilstm.argtypes = [i, i] + [vp] * 3 + [i] * 3 + [vp]
+            lib.clair3t_bilstm.argtypes = (
+                [i, i] + [vp] * 3 + [i] * 3 + [ctypes.c_longlong] * 6 + [i, i, vp])
             lib.clair3t_bilstm.restype = i
             lib.clair3t_cuda_error_string.argtypes = [i]
             lib.clair3t_cuda_error_string.restype = ctypes.c_char_p

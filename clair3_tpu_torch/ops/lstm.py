@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from clair3_tpu_torch.ops.bilstm import bilstm_recurrence
+from clair3_tpu_torch.ops.bilstm import batch_major, bilstm_batch_major
 
 
 def _project(x: torch.Tensor, wi: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -22,14 +22,6 @@ def _project(x: torch.Tensor, wi: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     xw_f = (xw[..., :H4] + b[0]).transpose(0, 1)               # [T, B, 4H]
     xw_b = (xw[..., H4:] + b[1]).transpose(0, 1).flip(0)       # backward walk
     return torch.stack([xw_f, xw_b], dim=1)
-
-
-def _unstack(hs: torch.Tensor) -> torch.Tensor:
-    """``[T, 2, B, H]`` (slot 1 reversed) -> ``[B, T, 2H]`` in torch order
-    (``[h_fwd(t); h_bwd(t)]``)."""
-    fwd = hs[:, 0].transpose(0, 1)
-    bwd = hs[:, 1].flip(0).transpose(0, 1)     # un-reverse the backward walk
-    return torch.cat([fwd, bwd], dim=-1)
 
 
 def bilstm(x: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
@@ -51,14 +43,17 @@ def bilstm(x: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor,
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs.append(h)
-    return _unstack(torch.stack(hs))
+    return batch_major(torch.stack(hs))
 
 
 class BiLSTM(nn.Module):
     """Bidirectional LSTM layer ``[B, T, C] -> [B, T, 2H]``.  With
     ``use_kernel`` the recurrence runs through ``ops.bilstm`` (the CUDA
     kernel on the card, its plain twin on the CPU), as the JAX
-    ``BiLSTM(use_pallas=True)`` does; inference only."""
+    ``BiLSTM(use_pallas=True)`` does; inference only.  That route is one
+    ``addmm`` (both directions' projections, bias folded in, ``[B, T, 8H]``)
+    and one kernel launch that reads it and writes ``[B, T, 2H]`` in place
+    by strides."""
 
     def __init__(self, input_size: int, hidden: int, use_kernel: bool = False):
         super().__init__()
@@ -71,5 +66,8 @@ class BiLSTM(nn.Module):
         if not self.use_kernel:
             return bilstm(x, self.wi, self.wh, self.b)
         dt = x.dtype
-        xw = _project(x, self.wi.to(dt), self.b.to(dt)).contiguous()
-        return _unstack(bilstm_recurrence(xw, self.wh.to(dt)))
+        B, T, C = x.shape
+        wi = self.wi.to(dt)
+        xw = torch.addmm(self.b.to(dt).reshape(-1), x.reshape(B * T, C),
+                         torch.cat([wi[0], wi[1]], dim=1))
+        return bilstm_batch_major(xw.view(B, T, -1), self.wh.to(dt))

@@ -20,7 +20,7 @@ JAX = os.path.join(REPO, "clair3_tpu")
 PORT = os.path.join(REPO, "clair3_tpu_torch")
 
 VERBATIM = [
-    "config.py", "gvcf.py", "postprocess.py",
+    "config.py", "gvcf.py", "postprocess.py", "models/zoo.py",
     "task/__init__.py", "task/labels.py", "utils/__init__.py",
     "io/__init__.py", "io/arith.py", "io/bai.py", "io/bam.py", "io/bed.py", "io/bgzf.py",
     "io/cram.py", "io/fasta.py", "io/fqzcomp.py", "io/rans.py", "io/rans_nx16.py",
@@ -104,8 +104,21 @@ EDITED = {
 
 # port module -> (original, the definitions copied into it, edits by name)
 DEFINITIONS = {
+    # the help text describes the port's backend, not the TPU's
     "cli.py": ("clair3_tpu/cli.py", ["_add_call_args", "_reconcile_dwell",
-                                     "resolve_model_file", "_validate_call_inputs"], {}),
+                                     "resolve_model_file", "_validate_call_inputs"], {
+        "_add_call_args": [
+            ('"server (e.g. http://tpu-host:8618); no local "',
+             '"server (e.g. http://gpu-host:8618); no local "'),
+            ('help="inference compute dtype; auto = bf16 on TPU "\n'
+             '                        "(benchmarked production config), fp32 elsewhere")',
+             'help="inference compute dtype; auto = bf16 on CUDA, "\n'
+             '                        "fp32 on the CPU")'),
+            ('help="write a jax.profiler trace', 'help="write a torch.profiler trace'),
+            ('help="coordinator address host:port of process 0 "\n'
+             '                        "(omit on TPU pod slices with runtime bootstrap)")',
+             'help="coordinator address host:port of process 0")'),
+        ]}),
     "testing.py": ("clair3_tpu/testing.py", [
         "BASES", "_FA_BASE_FROM_VAL", "SimVariant", "random_reference",
         "_read_from_reference", "simulate_reads", "write_test_case", "PileupOracleEngine",

@@ -120,6 +120,48 @@ def test_bilstm_matches_plain(device, batch, dtype, tol):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("batch", [256, 1000, 4096])
+@pytest.mark.parametrize("H", [128, 160])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("layout", ["tpu", "batch-major"])
+def test_bilstm_layouts_and_widths(device, batch, H, dtype, tol, layout):
+    """Both layouts (the batch-major one read and written by strides, with
+    direction 1 walked backwards) at both layer widths; bf16 at these widths
+    is the tensor-core kernel."""
+    rs = np.random.RandomState(batch + H)
+    shape = (33, 2, batch, 4 * H) if layout == "tpu" else (batch, 33, 8 * H)
+    xw = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device, dtype)
+    wh = torch.from_numpy((rs.randn(2, H, 4 * H) * 0.1).astype(np.float32)).to(device, dtype)
+    kernel, twin = ((k2.bilstm_recurrence, k2.bilstm_recurrence_reference) if layout == "tpu"
+                    else (k2.bilstm_batch_major, k2.bilstm_batch_major_reference))
+    before = k2.launches
+    got = kernel(xw, wh)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    want = twin(xw, wh)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_bilstm_module_kernel_route_bf16(device):
+    C, H = 18, 128
+    rs = np.random.RandomState(10)
+    mod = BiLSTM(C, H, use_kernel=True)
+    with torch.no_grad():
+        for p, scale in ((mod.wi, 1 / np.sqrt(C)), (mod.wh, 0.1), (mod.b, 0.1)):
+            p.copy_(torch.from_numpy(rs.randn(*p.shape) * scale))
+    mod = mod.to(device, torch.bfloat16)
+    x = torch.from_numpy(rs.randn(300, 33, C).astype(np.float32)).to(device, torch.bfloat16)
+    with torch.inference_mode():
+        before = k2.launches
+        got = mod(x)
+        assert k2.launches == before + 1
+        wi = mod.wi
+        xw = torch.addmm(mod.b.reshape(-1), x.reshape(-1, C), torch.cat([wi[0], wi[1]], 1))
+        want = k2.bilstm_batch_major_reference(xw.view(300, 33, -1), mod.wh)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2
+
+
 def test_bilstm_module_kernel_route(device):
     C, H = 256, 160
     rs = np.random.RandomState(9)
