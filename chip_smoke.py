@@ -17,14 +17,18 @@ TFLOP/s f32), the H100 SXM data sheet's figures.
 Phase 1  builds the CUDA kernels from clair3_tpu_torch/csrc/ (nvcc, sm_90a)
          and, beside them, the port's native host library (g++,
          clair3_tpu_torch/native), and prints both times.
-Phase 2  holds the pileup kernel against its plain PyTorch twin on the card,
-         with the committed hifi weights (2 heads) and seeded random 4-head
-         weights, on real pileup tensors (extracted from the phase-3 region)
-         and on random counts, at B = 256, 4096, 1000 (not a multiple of
-         the tile) and 2048 (the engine's buckets are 256/1024/2048/4096),
-         timed at each B beside its bound, with its trunk mode (no PyTorch
-         call computes the whole net or its trunk, so neither has a library
-         time):
+Phase 2  holds the pileup kernels against their plain PyTorch twins on the
+         card (bf16: the three tensor-core launches of csrc/pileup_tc.cu;
+         f32: the SIMT kernel of csrc/pileup_full.cu), with the committed
+         hifi weights (2 heads) and seeded random 4-head weights, on real
+         pileup tensors (extracted from the phase-3 region) and on random
+         counts, at B = 256, 4096, 1000 and 2048 (the engine's buckets are
+         256/1024/2048/4096), 1024, 1 and 33 (not multiples of the tile),
+         with its trunk mode; each bf16 launch (L1, L2, L3) against its twin
+         on the same input, max |d| <= 2e-2 and mean |d| <= 1e-4; timed at
+         B = 256, 1024, 2048, 4096 on packed operands beside the bound, with
+         each launch and the packing (no PyTorch call computes the whole net
+         or its trunk, so neither has a library time):
            f32 kernel vs f32 twin        max |dp| <= 2e-4
            bf16 kernel vs f32 twin       max |dp| <  1e-2
            trunk mode (n_heads = 0): f32 within 2e-4 (relative to the
@@ -98,9 +102,11 @@ import sys
 import tempfile
 import time
 
-BATCHES = (256, 4096, 1000, 2048)
+BATCHES = (256, 4096, 1000, 2048, 1024, 1, 33)
+K1_TIME_BATCHES = (256, 1024, 2048, 4096)
 F32_TOL = 2e-4
 BF16_TOL = 1e-2
+LAUNCH_MAX, LAUNCH_MEAN = 2e-2, 1e-4
 K3_BATCHES = (1, 11, 256, 1024)
 K3_F32_TOL = 1e-5
 K3_BF16_ULPS = 2
@@ -108,6 +114,7 @@ K2_BATCHES = (256, 1000, 4096)
 K2_SHAPES = ((18, 128), (256, 160))
 K2_F32_TOL = 1e-5
 K2_BF16_TOL = 1e-2
+LAUNCH_MAX, LAUNCH_MEAN = 2e-2, 1e-4
 TIME_BATCHES = (1024, 4096)
 K3_TIME_BATCHES = (1024, 2048, 4096)
 LSTM_LIB_TOL = 1e-4
@@ -145,8 +152,9 @@ def print_ptxas_report(log):
     """One line per kernel of the ptxas report: registers and spills."""
     name, spills = "?", ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?((?:pileup_full|bilstm_tc|bilstm|fa_conv1_tc|fa_conv1)"
-                      r"_kernel)(?:I(13__nv_bfloat16|f|Li(\d+)E))?", line)
+        m = re.search(r"Compiling entry function '\w*?((?:pileup_full|pileup_l1_tc|pileup_l2_tc|"
+                      r"pileup_head|bilstm_tc|bilstm|fa_conv1_tc|fa_conv1)_kernel)"
+                      r"(?:I(13__nv_bfloat16|f|Li(\d+)E))?", line)
         if m:
             arg = {"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(2), m.group(3))
             name = m.group(1) + (f"<{arg}>" if arg else "")
@@ -215,7 +223,7 @@ def phase2_kernel_vs_plain(torch, nets, real):
                     else:
                         check(e_f32 < BF16_TOL, f"{label} B={B} bf16 {kind} vs f32: {e_f32}")
                     worst[str(dt)] = max(worst.get(str(dt), 0.0), e_f32)
-                # trunk mode: the n_heads = 0 launch of the same kernel
+                # trunk mode: the n_heads = 0 launch of the same kernels
                 x = inputs["real" if label == "hifi" else "random"]
                 got = pf.pileup_trunk(x, *trunk, compute_dtype=dt).float()
                 torch.cuda.synchronize()
@@ -229,28 +237,81 @@ def phase2_kernel_vs_plain(torch, nets, real):
                 else:
                     check(bool(torch.allclose(got, want, rtol=2e-2, atol=1e-2)),
                           f"{label} B={B} trunk bf16: {err}")
-            if label == "hifi":
-                x = inputs["real"]
+                if dt == bf16:
+                    launch_vs_twins(torch, pf, label, B, x, trunk, heads)
+            if label == "hifi" and B in K1_TIME_BATCHES:
                 for dt in (bf16, f32):
-                    y = pf.pileup_full(x, *trunk, heads, compute_dtype=dt)
-                    k = cuda_ms(torch, lambda: pf.pileup_full(x, *trunk, heads, compute_dtype=dt), 10)
-                    p = cuda_ms(torch, lambda: pf.pileup_full_reference(
-                        x, *trunk, heads, compute_dtype=dt), 5)
-                    b_ms, by = bound(2 * B * k1_macs(trunk, heads), nbytes(x, y, *trunk, *heads), dt)
-                    timing[(B, str(dt))] = (k, p, b_ms, by)
-                    print(f"[phase2] time B={B:5d} {str(dt):14s} kernel {k:.3f} ms, "
-                          f"plain {p:.3f} ms, bound {b_ms:.4f} ms ({by}), kernel at "
-                          f"{100 * b_ms / k:.1f}% of the bound, {B / k * 1e3:.0f} cand/s")
-                    # trunk mode (n_heads = 0), the counterpart of pileup_trunk_pallas
-                    y = pf.pileup_trunk(x, *trunk, compute_dtype=dt)
-                    k = cuda_ms(torch, lambda: pf.pileup_trunk(x, *trunk, compute_dtype=dt), 10)
-                    p = cuda_ms(torch, lambda: pf.pileup_trunk_reference(
-                        x, *trunk, compute_dtype=dt), 5)
-                    b_ms, by = bound(2 * B * k1_macs(trunk, ()), nbytes(x, y, *trunk), dt)
-                    print(f"[phase2] time B={B:5d} {str(dt):14s} trunk mode {k:.3f} ms, "
-                          f"plain {p:.3f} ms, bound {b_ms:.4f} ms ({by}), kernel at "
-                          f"{100 * b_ms / k:.1f}% of the bound")
+                    timing[(B, str(dt))] = time_k1(torch, pf, B, inputs["real"], trunk, heads, dt)
     return timing, worst
+
+
+def launch_vs_twins(torch, pf, label, B, x, trunk, heads):
+    """Each tensor-core launch against its plain twin on the same input
+    (L2 on L1's output, L3 on L2's): a rounding flip of h (one bf16 ulp)
+    carried through later steps moves the max; a misplaced fragment would
+    move the mean by ~1e-1."""
+    wi1, wh1, b1, wi2, wh2, b2, wd, bd = trunk
+    dt = torch.bfloat16
+    packed = pf.pack_pileup_operands(trunk, heads, dt, x.device)
+    check(packed.tc, f"{label}: the bf16 operands did not take the tensor-core route")
+    xc = x.to(dt).contiguous()
+    h1 = pf.launch_l1(xc, packed)
+    h2 = pf.launch_l2(h1, packed)
+    probs = pf.launch_head(h2, packed)
+    trunk_out = pf.launch_head(h2, packed, with_heads=False)
+    torch.cuda.synchronize()
+    errs = {
+        "L1": (h1.float() - pf.pileup_l1_reference(xc, wi1, wh1, b1, dt).float()),
+        "L2": (h2.float() - pf.pileup_l2_reference(h1, wi2, wh2, b2, dt).float()),
+        "L3": probs - pf.pileup_head_reference(h2, wd, bd, heads, dt),
+        "L3 trunk": (trunk_out.float() - pf.pileup_head_reference(h2, wd, bd, (), dt).float()),
+    }
+    for name, d in errs.items():
+        check(bool(torch.isfinite(d).all()), f"{label} B={B} {name}: non-finite output")
+        check(d.abs().max().item() <= LAUNCH_MAX and d.abs().mean().item() <= LAUNCH_MEAN,
+              f"{label} B={B} {name} vs its twin: max {d.abs().max().item()}, "
+              f"mean {d.abs().mean().item()}")
+    print(f"[phase2] {label:7s} B={B:5d} bf16 launches vs their twins, max |d| (mean |d|): "
+          + ", ".join(f"{n} {d.abs().max().item():.3g} ({d.abs().mean().item():.2g})"
+                      for n, d in errs.items()))
+
+
+def time_k1(torch, pf, B, x, trunk, heads, dt):
+    """K1 at batch B: the call on packed operands, the packing, each
+    tensor-core launch, the trunk mode and the plain twin (CUDA events),
+    beside the bound.  Returns the numbers by name."""
+    packed = pf.pack_pileup_operands(trunk, heads, dt, x.device)
+    y = pf.pileup_full_packed(x, packed)
+    t = {"ms": cuda_ms(torch, lambda: pf.pileup_full_packed(x, packed), 10),
+         "pack_ms": cuda_ms(torch, lambda: pf.pack_pileup_operands(trunk, heads, dt, x.device), 5),
+         "plain_ms": cuda_ms(torch, lambda: pf.pileup_full_reference(
+             x, *trunk, heads, compute_dtype=dt), 5)}
+    t["bound_ms"], t["bound_by"] = bound(2 * B * k1_macs(trunk, heads),
+                                         nbytes(x, y, *trunk, *heads), dt)
+    launch = ""
+    if packed.tc:
+        xc = x.to(dt).contiguous()
+        h1 = pf.launch_l1(xc, packed)
+        h2 = pf.launch_l2(h1, packed)
+        t["launch_ms"] = {"l1": cuda_ms(torch, lambda: pf.launch_l1(xc, packed), 10),
+                          "l2": cuda_ms(torch, lambda: pf.launch_l2(h1, packed), 10),
+                          "head": cuda_ms(torch, lambda: pf.launch_head(h2, packed), 10)}
+        launch = ", launches " + ", ".join(f"{k} {v:.4f}" for k, v in t["launch_ms"].items()) + " ms"
+    print(f"[phase2] time B={B:5d} {str(dt):14s} kernel {t['ms']:.4f} ms (packed operands){launch}; "
+          f"packing {t['pack_ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), kernel at "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound, {B / t['ms'] * 1e3:.0f} cand/s")
+    # trunk mode (n_heads = 0), the counterpart of pileup_trunk_pallas
+    packed_t = pf.pack_pileup_operands(trunk, (), dt, x.device)
+    y = pf.pileup_trunk_packed(x, packed_t)
+    k = cuda_ms(torch, lambda: pf.pileup_trunk_packed(x, packed_t), 10)
+    p = cuda_ms(torch, lambda: pf.pileup_trunk_reference(x, *trunk, compute_dtype=dt), 5)
+    b_ms, by = bound(2 * B * k1_macs(trunk, ()), nbytes(x, y, *trunk), dt)
+    t["trunk_ms"] = k
+    print(f"[phase2] time B={B:5d} {str(dt):14s} trunk mode {k:.4f} ms, "
+          f"plain {p:.3f} ms, bound {b_ms:.4f} ms ({by}), kernel at "
+          f"{100 * b_ms / k:.1f}% of the bound")
+    return t
 
 
 def _rows(path):
@@ -778,18 +839,19 @@ def main(argv=None) -> int:
         print(f"[chip_smoke] phases {sorted(phases)} passed; no record without every phase")
         return 0
     bf16 = str(torch.bfloat16)
-    k_ms, p_ms, k_bound, k_by = timing[(max(BATCHES), bf16)]
+    k1 = timing[(max(K1_TIME_BATCHES), bf16)]
     k3_ms, k3_plain, k3_lib, k3_bound, k3_by = k3_timing[("hifi", max(K3_TIME_BATCHES), bf16)]
     k2_key = (K2_SHAPES[0][1], max(TIME_BATCHES), bf16)
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[("tpu",) + k2_key]
     k2_module, k2_lib = k2_library[k2_key]
     record = {"kernels": [
         {"name": "pileup_full", "route": "cuda",
-         "source": "clair3_tpu_torch/csrc/pileup_full.cu",
+         "source": "clair3_tpu_torch/csrc/pileup_tc.cu",
          "replaces": "clair3_tpu/ops/pallas_pileup.py:267",
          "launches": launches["bf16"]["pileup_full"], "max_abs_err": worst[bf16],
-         "ms": k_ms, "plain_ms": p_ms, "bound_ms": k_bound, "bound_by": k_by,
-         "library_ms": None},
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None, "launch_ms": k1["launch_ms"],
+         "pack_ms": k1["pack_ms"], "trunk_ms": k1["trunk_ms"]},
         {"name": "fa_conv1", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/fa_conv1.cu",
          "replaces": "clair3_tpu/ops/pallas_fa.py:101",

@@ -3,7 +3,8 @@
 The port runs the same two-stage calling cascade on an NVIDIA GPU:
 
   1. pileup network  (BiLSTM over [33, 18] summarized-alignment tensors),
-     run as one hand-written CUDA kernel (csrc/pileup_full.cu)
+     run by hand-written CUDA kernels: at bf16 three tensor-core launches
+     (csrc/pileup_tc.cu), at f32 one SIMT kernel (csrc/pileup_full.cu)
   2. full-alignment network (ResNet over [depth, 33, 8|9] per-read tensors)
 
 The nets, the engine that feeds them, the kernels and the CLI are the

@@ -1,4 +1,8 @@
-// The whole pileup net in one kernel, for NVIDIA Hopper (sm_90a).
+// The whole pileup net in one SIMT kernel, for NVIDIA Hopper (sm_90a): the
+// route for float32, and for bf16 at widths other than the net's (C <= 32,
+// T = 33, H1 = 128, H2 = 160, D = 128).  bf16 at those widths runs the
+// three tensor-core launches of csrc/pileup_tc.cu instead; the choice is by
+// dtype and shape (ops/pileup_full.py::tc_route), never a fallback.
 //
 // Replaces the TPU kernel clair3_tpu/ops/pallas_pileup.py::pileup_full_pallas
 // (_make_full_kernel -> _trunk_compute, _lstm_gates, _selu) and, with
@@ -20,9 +24,11 @@
 // (layer 1 4.9 M, layer 2 17.6 M, dense 1.35 M) in 66 dependent steps, so a
 // small batch is latency-bound, and the ~2.1 M weights (4.2 MB in bf16) are
 // re-read from L2 by every block at every step: with BT rows per block, each
-// row costs about 48 MB / BT of L2 traffic at bf16.
+// row costs about 48 MB / BT of L2 traffic at bf16.  Measured, each step is
+// bound by latency and instruction issue (one thread per hidden unit, SIMT
+// FMAs): 11.3 ms at f32, and bf16 buys nothing (PERF.md, PR 1).
 //
-// Design (right and simple first; wgmma, TMA and tuning come later):
+// Design (right and simple first):
 //   * one block of NT threads owns BT batch rows and loops over the 66 steps
 //     of both layers; blocks are independent (no state crosses the grid);
 //   * a thread owns one hidden unit (direction d, index j) per step and

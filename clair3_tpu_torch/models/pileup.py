@@ -8,7 +8,8 @@ reference checkpoints).  Output ``[B, 24]`` or ``[B, 90]`` float32.
 Parameters are kept in float32 and cast to ``compute_dtype`` at use, as
 flax's ``param_dtype``/``dtype`` split does.  With ``use_kernel`` the whole
 net runs through ``ops.pileup_full.pileup_full``: the CUDA kernel for a
-tensor on the card, its plain twin for a tensor on the CPU.
+tensor on the card, its plain twin for a tensor on the CPU; the operands are
+cast and packed once per (dtype, device) and kept until a parameter changes.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from torch import nn
 from clair3_tpu_torch.config import NO_OF_POSITIONS, PILEUP_CHANNEL_SIZE
 from clair3_tpu_torch.models.layers import HEAD_NAMES, HEAD_SIZES, Dense
 from clair3_tpu_torch.ops.lstm import BiLSTM
-from clair3_tpu_torch.ops.pileup_full import pileup_full
+from clair3_tpu_torch.ops.pileup_full import (PackedPileup, pack_pileup_operands,
+                                              pileup_full_packed)
 
 # forwards that took the plain path on a CUDA tensor: a run that should have
 # gone through the kernel reads 0 here
@@ -37,6 +39,7 @@ class PileupNet(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.use_kernel = use_kernel
+        self._packed = None  # (key, PackedPileup) of the kernel route
         self.n_heads = 4 if add_indel_length else 2
         self.LSTM1 = BiLSTM(input_channels, lstm1_units)
         self.LSTM2 = BiLSTM(2 * lstm1_units, lstm2_units)
@@ -62,12 +65,23 @@ class PileupNet(nn.Module):
             heads += [l5.kernel, l5.bias, out.kernel, out.bias]
         return trunk, tuple(heads)
 
+    def packed_operands(self, dtype: torch.dtype, device) -> PackedPileup:
+        """``ops.pileup_full.pack_pileup_operands`` of this net, packed once
+        per ``(dtype, device)`` and again when a parameter is replaced or
+        written in place (``load_state_dict``, ``.to``): the key holds every
+        parameter's ``data_ptr`` and ``_version``."""
+        key = (dtype, torch.device(device),
+               tuple((p.data_ptr(), p._version) for p in self.parameters()))
+        if self._packed is None or self._packed[0] != key:
+            trunk, heads = self.kernel_operands()
+            self._packed = (key, pack_pileup_operands(trunk, heads, dtype, device))
+        return self._packed[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         global plain_cuda_forwards
         dt = self.compute_dtype
         if self.use_kernel:
-            trunk, heads = self.kernel_operands()
-            return pileup_full(x, *trunk, heads, compute_dtype=dt)
+            return pileup_full_packed(x, self.packed_operands(dt, x.device))
         if x.is_cuda:
             plain_cuda_forwards += 1
         x = self.LSTM2(self.LSTM1(x.to(dt)))

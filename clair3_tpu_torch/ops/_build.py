@@ -101,6 +101,12 @@ def load_library() -> ctypes.CDLL:
             lib.clair3t_pileup_full.argtypes = (
                 [i, i] + [vp] * 15 + [i] * 8 + [i] * 5 + [vp])
             lib.clair3t_pileup_full.restype = i
+            lib.clair3t_pileup_l1_tc.argtypes = [i] + [vp] * 5 + [i] * 4 + [vp]
+            lib.clair3t_pileup_l1_tc.restype = i
+            lib.clair3t_pileup_l2_tc.argtypes = [i] + [vp] * 5 + [i] * 4 + [vp]
+            lib.clair3t_pileup_l2_tc.restype = i
+            lib.clair3t_pileup_head.argtypes = [i] + [vp] * 8 + [i] * 11 + [vp]
+            lib.clair3t_pileup_head.restype = i
             lib.clair3t_fa_conv1.argtypes = [i, i] + [vp] * 4 + [i] * 5 + [vp]
             lib.clair3t_fa_conv1.restype = i
             lib.clair3t_bilstm.argtypes = (

@@ -73,19 +73,24 @@ def bilstm_batch_major_reference(xw: torch.Tensor, wh: torch.Tensor) -> torch.Te
     return batch_major(bilstm_recurrence_reference(time_major(xw), wh))
 
 
-def pack_wh_fragments(wh: torch.Tensor) -> torch.Tensor:
-    """``wh [2, H, 4H]`` in the order the tensor-core kernel reads it:
-    ``[2, H/16 (k16 step), H/16 (warp), 4 (gate), 32 (lane), 2 (n8 tile),
-    4]``.  Warp w owns hidden units ``[16w, 16w + 16)``; its n8 tile s of
-    gate q holds gate columns ``q*H + 16w + 8s + [0, 8)``.  Lane ``4g + p``
+def pack_wh_fragments(wh: torch.Tensor, gates: int = 4) -> torch.Tensor:
+    """``wh [..., K, N]`` (K a multiple of 16, N of 16 * gates) in the order
+    the tensor-core kernels read it: ``[..., K/16 (k16 step), N/(16 gates)
+    (warp), gates, 32 (lane), 2 (n8 tile), 4]``.  With ``N = gates * H``,
+    warp w owns units ``[16w, 16w + 16)`` of every gate; its n8 tile s of
+    gate q holds columns ``q*H + 16w + 8s + [0, 8)``.  Lane ``4g + p``
     holds, of k16 step kk, the mma.sync m16n8k16 B fragment of column
     ``q*H + 16w + 8s + g``: rows ``kk*16 + 2p + (0, 1, 8, 9)``, so one
-    16-byte load gives it both tiles of a gate.  One permuted copy."""
-    _, H, _ = wh.shape
-    n = H // 16
+    16-byte load gives it both tiles of a gate.  K2 packs ``wh [2, H, 4H]``;
+    K1 also ``wi`` (K = input width) and, with ``gates=1``, its dense
+    ``[T*2*H2, D]``.  One permuted copy."""
+    *lead, K, N = wh.shape
+    L = len(lead)
     # k = 16 kk + 8 kh + 2 p + e;  column = q H + 16 w + 8 s + g
-    v = wh.reshape(2, n, 2, 4, 2, 4, n, 2, 8)     # d kk kh p e q w s g
-    return v.permute(0, 1, 6, 5, 8, 3, 7, 2, 4).contiguous()  # d kk w q g p s kh e
+    v = wh.reshape(*lead, K // 16, 2, 4, 2, gates, N // (16 * gates), 2, 8)  # kk kh p e q w s g
+    order = [L, L + 5, L + 4, L + 7, L + 2, L + 6, L + 1, L + 3]              # kk w q g p s kh e
+    packed = v.permute(*range(L), *order)
+    return packed.reshape(*lead, K // 16, N // (16 * gates), gates, 32, 2, 4)
 
 
 def _launch(xw, wh, hs, T: int, B: int, H: int, xs, hstr, reverse1: bool) -> torch.Tensor:

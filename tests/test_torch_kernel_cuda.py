@@ -7,7 +7,13 @@ repository's conftest imports jax).  Bounds: f32 kernel vs f32 twin atol
 random 4-head weights; bf16 kernel vs the f32 twin within 1e-2 (the bf16
 bound of tests/test_pallas_pileup.py, which holds it with random weights
 and random counts, as here: with trained weights, random counts are no
-pileup a caller makes and bf16 itself moves them by ~2e-2).
+pileup a caller makes and bf16 itself moves them by ~2e-2).  bf16 at the
+pileup net's widths runs the three tensor-core launches of
+csrc/pileup_tc.cu; each is held against its plain twin on the same input,
+with the random 4-head weights: max |d| <= 2e-2 (a rounding flip of h, one
+bf16 ulp, 2^-8 near 1, carried through the recurrence's later steps: up to
+4 ulps measured) and mean |d| <= 1e-4 (flips are rare, ~1e-6 on average;
+a misplaced fragment moves the mean by ~1e-1).
 """
 
 import numpy as np
@@ -45,7 +51,7 @@ def _net(which, device):
     return net.to(device)
 
 
-@pytest.mark.parametrize("batch", [1, 256, 1000])
+@pytest.mark.parametrize("batch", [1, 31, 32, 33, 256, 1000, 4096])
 @pytest.mark.parametrize("which,dtype,tol", [("hifi", torch.float32, 2e-4),
                                              ("random4", torch.float32, 2e-4),
                                              ("random4", torch.bfloat16, 1e-2)])
@@ -77,6 +83,54 @@ def test_empty_batch_launches_nothing(device):
     out = pf.pileup_full(torch.zeros(0, 33, 18, device=device), *trunk, heads,
                          compute_dtype=torch.float32)
     assert out.shape == (0, 24) and pf.launches == before
+
+
+@pytest.mark.parametrize("batch", [1, 33, 1000])
+def test_pileup_tc_launches_match_their_twins(device, batch):
+    """L1, L2 and L3 each against its plain twin on the same input."""
+    net = _net("random4", device)
+    trunk, heads = net.kernel_operands()
+    wi1, wh1, b1, wi2, wh2, b2, wd, bd = trunk
+    dt = torch.bfloat16
+    packed = net.packed_operands(dt, device)
+    assert packed.tc
+    x = torch.from_numpy(random_counts(batch, (batch, 33, 18))).to(device, dt)
+    with torch.inference_mode():
+        h1 = pf.launch_l1(x, packed)
+        h2 = pf.launch_l2(h1, packed)
+        probs = pf.launch_head(h2, packed)
+        trunk_out = pf.launch_head(h2, packed, with_heads=False)
+        torch.cuda.synchronize()
+        pairs = ((h1, pf.pileup_l1_reference(x, wi1, wh1, b1, dt)),
+                 (h2, pf.pileup_l2_reference(h1, wi2, wh2, b2, dt)),
+                 (probs, pf.pileup_head_reference(h2, wd, bd, heads, dt)),
+                 (trunk_out, pf.pileup_head_reference(h2, wd, bd, (), dt)))
+    for got, want in pairs:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        d = (got.float() - want.float()).abs()
+        assert d.max().item() <= 2e-2 and d.mean().item() <= 1e-4
+
+
+def test_pileup_tc_empty_batch_launches_nothing(device):
+    net = _net("hifi", device)
+    net.compute_dtype, net.use_kernel = torch.bfloat16, True
+    before = pf.launches
+    with torch.inference_mode():
+        out = net(torch.zeros(0, 33, 18, dtype=torch.int16, device=device))
+    assert out.shape == (0, 24) and pf.launches == before
+
+
+def test_pileup_tc_refused_launch_raises(device):
+    """A head whose L5 needs more shared memory than a block may have: the
+    refused launch raises, nothing falls back."""
+    trunk, _ = _net("hifi", device).kernel_operands()
+    L5 = 2000
+    heads = (torch.zeros(128, L5, device=device), torch.zeros(L5, device=device),
+             torch.zeros(L5, 3, device=device), torch.zeros(3, device=device))
+    packed = pf.pack_pileup_operands(trunk, heads, torch.bfloat16, device)
+    assert packed.tc
+    with pytest.raises(RuntimeError, match="pileup_head"):
+        pf.pileup_full_packed(torch.zeros(4, 33, 18, device=device), packed)
 
 
 @pytest.mark.parametrize("batch", [1, 11, 256])

@@ -7,7 +7,9 @@
   ``tests/test_pallas_pileup.py`` runs it: f32 atol 2e-4, bf16 within 1e-2
   (the bounds of that file);
 * the flatten-order isolation of ``tests/test_pallas_pileup.py``, on the
-  port's trunk.
+  port's trunk;
+* ``PileupNet``'s kernel route packs its operands once per (dtype, device)
+  and again after ``load_state_dict``.
 
 Inputs are numpy arrays made from a seed and handed to both packages.
 """
@@ -137,3 +139,24 @@ def test_kernel_launch_refuses_a_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         pf._launch(x, tuple(torch.from_numpy(a) for a in args)
                    + (torch.zeros(5, 16, 8), torch.zeros(8)), (), torch.float32)
+
+
+def test_packed_operands_are_kept_and_rebuilt_after_load_state_dict():
+    net = PileupNet(add_indel_length=True, use_kernel=True)
+    net.load_state_dict(from_jax_variables(random_variables(net, seed=5)))
+    first = net.packed_operands(torch.bfloat16, torch.device("cpu"))
+    assert net.packed_operands(torch.bfloat16, torch.device("cpu")) is first
+    other = net.packed_operands(torch.float32, torch.device("cpu"))
+    assert other is not first and other.dtype == torch.float32
+    wh1_before = other.trunk[1].clone()
+
+    net.load_state_dict(from_jax_variables(random_variables(net, seed=6)))
+    again = net.packed_operands(torch.float32, torch.device("cpu"))
+    assert again is not other
+    assert not torch.equal(again.trunk[1], wh1_before)
+    assert torch.equal(again.trunk[1], net.LSTM1.wh.detach())
+    fresh = PileupNet(add_indel_length=True, use_kernel=True)
+    fresh.load_state_dict(net.state_dict())
+    x = torch.from_numpy(random_counts(2, (3, 33, 18)))
+    with torch.inference_mode():
+        assert torch.equal(net(x), fresh(x))
