@@ -46,7 +46,9 @@ Phase 3  calls a simulated 120 kb hifi region (held-out seed 91, the region
          engines ship the compact wire forms and the FA depth crop, as the
          JAX loader's do.  Checks: full-alignment rows > 10; SNP F1 >= 0.990
          and INDEL F1 >= 0.992 at bf16 (both bf16 runs); the pileup kernel
-         launched and the plain pileup path never ran on the card; the FA
+         launched and the plain pileup path never ran on the card (at
+         bf16 L1, L2 and L3 once per call and the SIMT kernel never, at f32
+         the reverse, by the per-kernel counts); the FA
          conv1 kernel launched in the opt-in run only; bf16 rows agree with
          f32 rows (<= 1% of rows change call or source, QUAL delta < 1.5
          on pileup-decided rows; after tests/test_bf16_parity.py); the
@@ -114,7 +116,6 @@ K2_BATCHES = (256, 1000, 4096)
 K2_SHAPES = ((18, 128), (256, 160))
 K2_F32_TOL = 1e-5
 K2_BF16_TOL = 1e-2
-LAUNCH_MAX, LAUNCH_MEAN = 2e-2, 1e-4
 TIME_BATCHES = (1024, 4096)
 K3_TIME_BATCHES = (1024, 2048, 4096)
 LSTM_LIB_TOL = 1e-4
@@ -183,6 +184,18 @@ def k1_macs(trunk, heads):
     return 33 * lstm + wd.numel() + sum(w.numel() for w in heads if w.dim() == 2)
 
 
+def route_launches(pf, before, dt, calls):
+    """The kernels launched since ``before`` (a copy of
+    ``pf.kernel_launches``): each kernel of ``dt``'s route ``calls`` times,
+    the other route's never.  Returns the launches by kernel."""
+    tc = dt == "torch.bfloat16"
+    got = {k: v - before[k] for k, v in pf.kernel_launches.items()}
+    want = {"pileup_l1_tc": calls * tc, "pileup_l2_tc": calls * tc, "pileup_head": calls * tc,
+            "pileup_full": calls * (not tc)}
+    check(got == want, f"{dt}: pileup kernels launched {got}, expected {want}")
+    return got
+
+
 def phase2_kernel_vs_plain(torch, nets, real):
     import numpy as np
 
@@ -200,8 +213,10 @@ def phase2_kernel_vs_plain(torch, nets, real):
                       "real": torch.from_numpy(np.resize(real, (B, 33, 18))).to(DEVICE)}
             for dt in (f32, bf16):
                 for kind, x in inputs.items():
+                    before = dict(pf.kernel_launches)
                     got = pf.pileup_full(x, *trunk, heads, compute_dtype=dt)
                     torch.cuda.synchronize()
+                    route_launches(pf, before, str(dt), 1)
                     same = pf.pileup_full_reference(x, *trunk, heads, compute_dtype=dt)
                     ref32 = pf.pileup_full_reference(x, *trunk, heads, compute_dtype=f32)
                     check(got.shape == ref32.shape and bool(torch.isfinite(got).all()),
@@ -421,6 +436,7 @@ def phase3_cascade(torch, work, fasta, bam, variants):
         del engines[:]
         os.environ.update(env)
         pf.launches = 0
+        pf.kernel_launches.update(dict.fromkeys(pf.kernel_launches, 0))
         k3.launches = 0
         pileup_model.plain_cuda_forwards = 0
         t0 = time.time()
@@ -428,6 +444,7 @@ def phase3_cascade(torch, work, fasta, bam, variants):
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches, conv1, plain = pf.launches, k3.launches, pileup_model.plain_cuda_forwards
+        kernels = dict(pf.kernel_launches)
         for key in env:
             del os.environ[key]
         check(rc == 0, f"call at {label} returned {rc}")
@@ -445,13 +462,17 @@ def phase3_cascade(torch, work, fasta, bam, variants):
         query = [r for r in VcfReader(os.path.join(out, "merge_output.vcf.gz"))
                  if r.filter in ("PASS", ".")]
         m = variant_metrics(truth, query)
-        print(f"[phase3] {label}: wall {wall:.2f} s, pileup kernel launches {launches}, "
+        print(f"[phase3] {label}: wall {wall:.2f} s, pileup kernel calls {launches} "
+              f"(launches {kernels}), "
               f"FA conv1 kernel launches {conv1}, plain pileup forwards on the card {plain}, "
               f"FA rows {fa_rows}, "
               f"SNP F1 {m['SNP'].f1:.6f} (P {m['SNP'].precision:.6f} R {m['SNP'].recall:.6f}), "
               f"INDEL F1 {m['INDEL'].f1:.6f} (P {m['INDEL'].precision:.6f} "
               f"R {m['INDEL'].recall:.6f})")
         check(launches > 0, f"{label}: the pileup kernel never launched")
+        # bf16: L1, L2 and L3 once per call, the SIMT kernel never; f32 the reverse
+        route_launches(pf, dict.fromkeys(kernels, 0),
+                       str(torch.bfloat16 if flag == "bf16" else torch.float32), launches)
         check(plain == 0, f"{label}: the plain pileup path ran on the card")
         check(fa_rows > 10, f"{label}: FA stage never engaged ({fa_rows} rows)")
         if env:
@@ -461,7 +482,7 @@ def phase3_cascade(torch, work, fasta, bam, variants):
         if flag == "bf16":
             check(m["SNP"].f1 >= GATE_SNP_F1, f"{label}: SNP F1 {m['SNP'].f1}")
             check(m["INDEL"].f1 >= GATE_INDEL_F1, f"{label}: INDEL F1 {m['INDEL'].f1}")
-        result[label] = {"pileup_full": launches, "fa_conv1": conv1}
+        result[label] = {"pileup_full": launches, "pileup_kernels": kernels, "fa_conv1": conv1}
     port_cli._load_engine = load_engine
     logging.getLogger().removeHandler(tap)
     bf16_vs_f32(outs["bf16"], outs["fp32"])
@@ -840,6 +861,7 @@ def main(argv=None) -> int:
         return 0
     bf16 = str(torch.bfloat16)
     k1 = timing[(max(K1_TIME_BATCHES), bf16)]
+    k1_kernels = launches["bf16"]["pileup_kernels"]
     k3_ms, k3_plain, k3_lib, k3_bound, k3_by = k3_timing[("hifi", max(K3_TIME_BATCHES), bf16)]
     k2_key = (K2_SHAPES[0][1], max(TIME_BATCHES), bf16)
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[("tpu",) + k2_key]
@@ -848,7 +870,10 @@ def main(argv=None) -> int:
         {"name": "pileup_full", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/pileup_tc.cu",
          "replaces": "clair3_tpu/ops/pallas_pileup.py:267",
-         "launches": launches["bf16"]["pileup_full"], "max_abs_err": worst[bf16],
+         # launches of the source's three kernels on the main path, and by kernel
+         "launches": sum(k1_kernels[k] for k in ("pileup_l1_tc", "pileup_l2_tc", "pileup_head")),
+         "kernel_launches": k1_kernels, "calls": launches["bf16"]["pileup_full"],
+         "max_abs_err": worst[bf16],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None, "launch_ms": k1["launch_ms"],
          "pack_ms": k1["pack_ms"], "trunk_ms": k1["trunk_ms"]},

@@ -41,7 +41,9 @@
 //     step), barrier, H/16 k-steps of 16 mma.sync m16n8k16 (bf16 products,
 //     f32 sums) per warp, the cell update in registers, barrier, the new h
 //     to shared memory and to hs.  One h buffer: a second does not fit at
-//     H = 160 beside the 200 KB of weights;
+//     H = 160 beside the 200 KB of weights.  The products and the cell
+//     update are lstm_common.cuh's, shared with K1's tensor-core launches
+//     (pileup_tc.cu), which differ only in the argument of h's tanh;
 //   * the gate functions are tanh.approx.f32 (sigmoid(x) = 0.5 tanh(x/2) +
 //     0.5), one MUFU instruction each: with expf/tanhf the gate arithmetic
 //     took about half the kernel's time (measured by removing it), and the
@@ -57,40 +59,11 @@
 // and 8 FMAs.  Rows past the batch are computed on zeros and never stored,
 // in both kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "lstm_common.cuh"
 
 namespace {
 
 constexpr int BT = 8;  // batch rows per block of the SIMT kernel
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype(bf16)
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
-
-// one MUFU instruction each (relative error ~2^-11, under bf16's 2^-9
-// rounding of c and h): the tensor-core kernel's gate arithmetic
-__device__ __forceinline__ float tanh_approx(float v) {
-  float r;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ float sigmoid_approx(float v) {
-  return fmaf(0.5f, tanh_approx(0.5f * v), 0.5f);
-}
 
 struct Strides {
   long long xt, xd, xb;  // xw: time, direction, row
@@ -178,27 +151,7 @@ int launch_simt(const void* xw, const void* wh, void* hs, int nT, int B, int H,
 
 constexpr int BM = 32;  // batch rows per block: two m16 tiles
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment positions (PTX ISA, mma.m16n8k16, lane = 4 g + q):
-//   A [16 x 16]: a0 (g, 2q..2q+1), a1 (g + 8, 2q..), a2 (g, 2q + 8..),
-//                a3 (g + 8, 2q + 8..)
-//   B [16 x 8]:  b0 (k = 2q..2q+1, n = g), b1 (k = 2q + 8..2q + 9, n = g)
-//   D [16 x 8]:  d0, d1 (g, 2q, 2q + 1), d2, d3 (g + 8, 2q, 2q + 1)
-// Accumulator acc[mt][gate][s][e] of warp w: row mt*16 + g + 8*(e >> 1),
-// gate column gate*H + 16w + 8s + 2q + (e & 1), so all four gates of a
-// (row, unit) pair sit in one thread.
+// fragment positions and the accumulators' layout: lstm_common.cuh
 template <int H>
 __global__ void __launch_bounds__(32 * (H / 16), 1)
 bilstm_tc_kernel(const __nv_bfloat16* __restrict__ xw, const uint4* __restrict__ wpk,
@@ -267,46 +220,9 @@ bilstm_tc_kernel(const __nv_bfloat16* __restrict__ xw, const uint4* __restrict__
     if (t + 1 < nT) load_x(t + 1);  // in flight for the whole step
     __syncthreads();  // h of step t - 1 (and, at t = 0, the weights) in place
 
-#pragma unroll
-    for (int kk = 0; kk < NW; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const __nv_bfloat16* hr = h_s + (mt * 16 + g) * HP + kk * 16 + 2 * q;
-        a[mt][0] = ld_u32(hr);
-        a[mt][1] = ld_u32(hr + 8 * HP);
-        a[mt][2] = ld_u32(hr + 8);
-        a[mt][3] = ld_u32(hr + 8 * HP + 8);
-      }
-#pragma unroll
-      for (int gate = 0; gate < 4; ++gate) {
-        const uint4 b = w_s[((kk * NW + warp) * 4 + gate) * 32 + lane];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][gate][0], a[mt], b.x, b.y);
-          mma_bf16(acc[mt][gate][1], a[mt], b.z, b.w);
-        }
-      }
-    }
-
-    // the cell update, in registers
+    h_products<H>(acc, h_s, w_s, warp, lane);
     __nv_bfloat162 h_new[2][2][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int sn = 0; sn < 2; ++sn) {
-        float hv[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float c_new = round_to<__nv_bfloat16>(
-              sigmoid_approx(acc[mt][1][sn][e]) * c[mt][sn][e] +
-              sigmoid_approx(acc[mt][0][sn][e]) * tanh_approx(acc[mt][2][sn][e]));
-          c[mt][sn][e] = c_new;
-          hv[e] = sigmoid_approx(acc[mt][3][sn][e]) * tanh_approx(c_new);
-        }
-        h_new[mt][sn][0] = __floats2bfloat162_rn(hv[0], hv[1]);
-        h_new[mt][sn][1] = __floats2bfloat162_rn(hv[2], hv[3]);
-      }
+    cell_update<true>(acc, c, h_new);  // tanh of the rounded c, as pallas_lstm._kernel
     __syncthreads();  // every warp has read h of step t - 1
 
     __nv_bfloat16* out_t = hs + tt * s.ht + d * s.hd;

@@ -27,7 +27,8 @@
 // beside wh2 either: every block streams them from L2 at every step
 // (33 x 256 blocks x 320 KB = 2.8 GB at B = 4096), which is what paces L2.
 //
-// Design, L1 and L2 (K2's tensor-core step, csrc/bilstm.cu:202-328):
+// Design, L1 and L2 (K2's tensor-core step, lstm_common.cuh, which
+// csrc/bilstm.cu runs too; only the argument of h's tanh differs):
 //   * one block per (tile of BM = 32 batch rows, direction); H/16 warps,
 //     warp w owns hidden units [16w, 16w + 16) of all four gates, so each
 //     thread's accumulators hold i, f, g, o of the same (row, unit) pairs:
@@ -52,18 +53,13 @@
 // [16w, 16w + 16); the dense is one GEMM over K = T 2H2 (the Pallas sum in
 // another order), A staged by cp.async one time step (320 columns) ahead,
 // wd fragments from L2 in a ring of registers 10 k16 steps ahead; then the
-// heads and the softmax in SIMT (< 1% of the work), as csrc/pileup_full.cu.
+// heads and the softmax in SIMT (< 1% of the work), lstm_common.cuh's
+// pileup_heads, which the f32 kernel of csrc/pileup_full.cu runs too.
 // Rows past the batch are computed on zeros and never stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "lstm_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
 
 constexpr int BM = 32;         // batch rows per block: two m16 tiles
 constexpr int H1 = 128;        // layer-1 units
@@ -72,23 +68,10 @@ constexpr int KX = 32;         // layer-1 input channels, zero-padded
 constexpr int KC = 2 * H2;     // dense columns per time step (320)
 constexpr int D = 128;         // dense units
 constexpr int HEAD_NT = 256;   // L3 threads: 8 warps x 16 dense columns
-constexpr int MAX_HEADS = 4;
 
 struct Offsets {
   int v[MAX_HEADS + 1];  // head column offsets; v[NH] == O
 };
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -107,56 +90,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// tanh.approx.f32: one MUFU instruction (relative error ~2^-11, under
-// bf16's 2^-9 rounding of h and c), as K2's tensor-core step
-__device__ __forceinline__ float tanh_approx(float v) {
-  float r;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ float sigmoid_approx(float v) {  // the tanh form, as the Pallas kernel
-  return fmaf(0.5f, tanh_approx(0.5f * v), 0.5f);
-}
-
-__device__ __forceinline__ float selu_f(float v) {
-  const float scale = 1.0507009873554805f, alpha = 1.6732632423543772f;
-  return scale * (v > 0.f ? v : alpha * (expf(v) - 1.f));
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));  // round to nearest even
-}
-
-// Fragment positions (PTX ISA, mma.m16n8k16, lane = 4 g + q):
-//   A [16 x 16]: a0 (g, 2q..2q+1), a1 (g + 8, 2q..), a2 (g, 2q + 8..),
-//                a3 (g + 8, 2q + 8..)
-//   B [16 x 8]:  b0 (k = 2q..2q+1, n = g), b1 (k = 2q + 8..2q + 9, n = g)
-//   D [16 x 8]:  d0, d1 (g, 2q, 2q + 1), d2, d3 (g + 8, 2q, 2q + 1)
-// LSTM accumulator acc[mt][gate][sn][e] of warp w: row mt*16 + g + 8*(e >> 1),
-// gate column gate*H + 16w + 8sn + 2q + (e & 1).
-
-// A fragments of the m16 x k16 tile at (row, col) of a bf16 array with row
-// stride ld (row = m16 base + g, col = k16 base + 2q)
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int row,
-                                       int col) {
-  const bf16* p = tile + row * ld + col;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * ld);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * ld + 8);
-}
-
-// one k16 step of the four gates for both m16 tiles; b[gate] holds its two n8 tiles
-__device__ __forceinline__ void mma_gates(float (&acc)[2][4][2][4], const uint32_t (&a)[2][4],
-                                          const uint4 (&b)[4]) {
-#pragma unroll
-  for (int gate = 0; gate < 4; ++gate)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      mma_bf16(acc[mt][gate][0], a[mt], b[gate].x, b[gate].y);
-      mma_bf16(acc[mt][gate][1], a[mt], b[gate].z, b[gate].w);
-    }
-}
+// The fragment positions, the accumulators' layout, the products h . wh and
+// the cell update are lstm_common.cuh's (K2's step); K1's cell takes tanh
+// of the unrounded c_new: cell_update<false>.
 
 // the accumulators start from the bias b[d] at their columns (read at
 // every step from L1: held in registers it costs L2 16 of its 168)
@@ -174,45 +110,6 @@ __device__ __forceinline__ void init_acc(float (&acc)[2][4][2][4], const bf16* _
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][gate][sn][e] = e & 1 ? v.y : v.x;
-    }
-}
-
-// acc += h . wh[d], h [BM, H] in shared memory (row stride H + 8), wh_s packed
-template <int H>
-__device__ __forceinline__ void h_products(float (&acc)[2][4][2][4], const bf16* h_s,
-                                           const uint4* w_s, int warp, int lane) {
-  constexpr int NW = H / 16, HP = H + 8;
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < NW; ++kk) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) load_a(a[mt], h_s, HP, mt * 16 + g, kk * 16 + 2 * q);
-    uint4 b[4];
-#pragma unroll
-    for (int gate = 0; gate < 4; ++gate) b[gate] = w_s[((kk * NW + warp) * 4 + gate) * 32 + lane];
-    mma_gates(acc, a, b);
-  }
-}
-
-// K1's cell (pallas_pileup._lstm_gates): c_new = f c + i g in float32,
-// h = o tanh(c_new) from the unrounded c_new; c is kept rounded to bf16
-__device__ __forceinline__ void cell_update(const float (&acc)[2][4][2][4], float (&c)[2][2][4],
-                                            bf162 (&h_new)[2][2][2]) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int sn = 0; sn < 2; ++sn) {
-      float hv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float c_new = sigmoid_approx(acc[mt][1][sn][e]) * c[mt][sn][e] +
-                            sigmoid_approx(acc[mt][0][sn][e]) * tanh_approx(acc[mt][2][sn][e]);
-        hv[e] = sigmoid_approx(acc[mt][3][sn][e]) * tanh_approx(c_new);
-        c[mt][sn][e] = round_bf16(c_new);
-      }
-      h_new[mt][sn][0] = __floats2bfloat162_rn(hv[0], hv[1]);
-      h_new[mt][sn][1] = __floats2bfloat162_rn(hv[2], hv[3]);
     }
 }
 
@@ -308,7 +205,7 @@ pileup_l1_tc_kernel(const bf16* __restrict__ x, const uint4* __restrict__ wipk,
     }
     h_products<H>(acc, h_s, wh_s, warp, lane);
     bf162 h_new[2][2][2];
-    cell_update(acc, c, h_new);
+    cell_update<false>(acc, c, h_new);
     __syncthreads();  // every warp has read h(t - 1) and x(t)
     store_h<H>(h_new, h_s, h1seq, row0, B, nT, tt, d, warp, lane);
     if (t + 1 < nT) store_x();
@@ -393,7 +290,7 @@ pileup_l2_tc_kernel(const bf16* __restrict__ h1seq, const uint4* __restrict__ wi
     }
     h_products<H>(acc, h_s, wh_s, warp, lane);
     bf162 h_new[2][2][2];
-    cell_update(acc, c, h_new);
+    cell_update<false>(acc, c, h_new);
     __syncthreads();  // every warp has read h(t - 1) and the input of step t
     if (t + 1 < nT) stage(t + 1);
     store_h<H>(h_new, h_s, h2seq, row0, B, nT, tt, d, warp, lane);
@@ -494,65 +391,15 @@ pileup_head_kernel(const bf16* __restrict__ h2seq, const uint4* __restrict__ wdp
             *reinterpret_cast<bf162*>(static_cast<bf16*>(out) + (size_t)(row0 + r) * D + n) =
                 __floats2bfloat162_rn(v0, v1);
         } else {
-          trunk_s[r * D + n] = round_bf16(v0);
-          trunk_s[r * D + n + 1] = round_bf16(v1);
+          trunk_s[r * D + n] = round_to<bf16>(v0);
+          trunk_s[r * D + n + 1] = round_to<bf16>(v1);
         }
       }
   if (NH == 0) return;
-  __syncthreads();
-
-  const int O = hoff.v[NH];
   float* h5_s = trunk_s + BM * D;  // [BM][L5]
   float* lg_s = h5_s + BM * L5;    // [BM][O], logits after SELU
-  constexpr int RG = 8;            // rows per SIMT item
-  for (int hd = 0; hd < NH; ++hd) {
-    for (int i = tid; i < L5 * (BM / RG); i += HEAD_NT) {
-      const int m = i % L5, r0 = (i / L5) * RG;
-      const bf16* __restrict__ w = w5 + (size_t)hd * D * L5 + m;
-      const float bv = __bfloat162float(b5[hd * L5 + m]);
-      float sum[RG];
-#pragma unroll
-      for (int r = 0; r < RG; ++r) sum[r] = bv;
-      for (int n = 0; n < D; ++n) {
-        const float wv = __bfloat162float(w[(size_t)n * L5]);
-#pragma unroll
-        for (int r = 0; r < RG; ++r) sum[r] += trunk_s[(r0 + r) * D + n] * wv;
-      }
-#pragma unroll
-      for (int r = 0; r < RG; ++r) h5_s[(r0 + r) * L5 + m] = round_bf16(selu_f(round_bf16(sum[r])));
-    }
-    __syncthreads();
-    const int lo = hoff.v[hd], width = hoff.v[hd + 1] - lo;
-    for (int i = tid; i < width * (BM / RG); i += HEAD_NT) {
-      const int cix = i % width, r0 = (i / width) * RG;
-      const bf16* __restrict__ w = wo + lo + cix;
-      const float bv = __bfloat162float(bo[lo + cix]);
-      float sum[RG];
-#pragma unroll
-      for (int r = 0; r < RG; ++r) sum[r] = bv;
-      for (int m = 0; m < L5; ++m) {
-        const float wv = __bfloat162float(w[(size_t)m * O]);
-#pragma unroll
-        for (int r = 0; r < RG; ++r) sum[r] += h5_s[(r0 + r) * L5 + m] * wv;
-      }
-#pragma unroll
-      for (int r = 0; r < RG; ++r) lg_s[(r0 + r) * O + lo + cix] = selu_f(round_bf16(sum[r]));
-    }
-    __syncthreads();
-  }
-
-  float* probs = static_cast<float*>(out);
-  for (int i = tid; i < BM * NH; i += HEAD_NT) {
-    const int r = i / NH, hd = i % NH;
-    if (row0 + r >= B) continue;
-    const float* lg = lg_s + r * O;
-    const int lo = hoff.v[hd], hi = hoff.v[hd + 1];
-    float mx = lg[lo];
-    for (int cix = lo + 1; cix < hi; ++cix) mx = fmaxf(mx, lg[cix]);
-    float tot = 0.f;
-    for (int cix = lo; cix < hi; ++cix) tot += expf(lg[cix] - mx);
-    for (int cix = lo; cix < hi; ++cix) probs[(size_t)(row0 + r) * O + cix] = expf(lg[cix] - mx) / tot;
-  }
+  pileup_heads<bf16, BM, HEAD_NT>(trunk_s, h5_s, lg_s, w5, b5, wo, bo, D, L5, NH, hoff.v,
+                                  static_cast<float*>(out), row0, B);
 }
 
 template <typename Kernel>

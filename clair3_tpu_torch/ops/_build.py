@@ -98,8 +98,7 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.clair3t_pileup_full.argtypes = (
-                [i, i] + [vp] * 15 + [i] * 8 + [i] * 5 + [vp])
+            lib.clair3t_pileup_full.argtypes = [i] + [vp] * 15 + [i] * 8 + [i] * 5 + [vp]
             lib.clair3t_pileup_full.restype = i
             lib.clair3t_pileup_l1_tc.argtypes = [i] + [vp] * 5 + [i] * 4 + [vp]
             lib.clair3t_pileup_l1_tc.restype = i

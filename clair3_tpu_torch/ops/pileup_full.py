@@ -11,18 +11,18 @@ function with the same rounding points:
 * the heads round to the compute dtype where the Pallas kernel does
   (``pallas_pileup.py:176-187``).
 
-Two routes, chosen by dtype and shape (``tc_route``), not by failure:
+Two routes on the card, chosen by dtype, not by failure:
 
-* bf16 at the net's widths (``C <= 32``, ``T = 33``, ``H1 = 128``,
-  ``H2 = 160``, ``D = 128``): three tensor-core launches of
-  ``csrc/pileup_tc.cu``, each with its plain twin here: L1
-  (``pileup_l1_reference``, ``x -> h1seq [B, T, 2*H1]``), L2
-  (``pileup_l2_reference``, ``h1seq -> h2seq [B, T, 2*H2]``) and L3
-  (``pileup_head_reference``, the dense as one GEMM, then the trunk or the
-  heads and the softmax).  The weights are cast, padded and packed in
-  mma.sync B-fragment order once, by ``pack_pileup_operands``;
-* float32, and bf16 at other widths: the one SIMT kernel of
-  ``csrc/pileup_full.cu``.
+* bf16: three tensor-core launches of ``csrc/pileup_tc.cu``, each with its
+  plain twin here: L1 (``pileup_l1_reference``, ``x -> h1seq [B, T,
+  2*H1]``), L2 (``pileup_l2_reference``, ``h1seq -> h2seq [B, T, 2*H2]``)
+  and L3 (``pileup_head_reference``, the dense as one GEMM, then the trunk
+  or the heads and the softmax).  They take only the net's widths
+  (``TC_WIDTHS``, ``C <= TC_MAX_C``; ``tc_route``), which every Clair3
+  pileup model has; bf16 at other widths raises.  The weights are cast,
+  padded and packed in mma.sync B-fragment order once, by
+  ``pack_pileup_operands``;
+* float32: the one SIMT kernel of ``csrc/pileup_full.cu``, at any width.
 
 ``pileup_full_packed`` and ``pileup_trunk_packed`` take packed operands
 (``PileupNet`` keeps them); ``pileup_full`` and ``pileup_trunk`` pack and
@@ -42,11 +42,14 @@ import torch.nn.functional as F
 from clair3_tpu_torch.ops.bilstm import pack_wh_fragments
 
 # calls of pileup_full / pileup_trunk (and their packed forms) that launched
-# kernels: one call is one launch on the SIMT route, three (L1, L2, L3) on
-# the tensor-core route; plain CPU calls do not count
+# kernels; plain CPU calls do not count
 launches = 0
+# launches of each kernel, counted where it is launched: a call launches
+# pileup_full once (float32) or pileup_l1_tc, pileup_l2_tc and pileup_head
+# once each (bf16)
+kernel_launches = {"pileup_l1_tc": 0, "pileup_l2_tc": 0, "pileup_head": 0, "pileup_full": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEADS = 4
 # widths of the tensor-core route; C up to TC_MAX_C (zero-padded to it)
 TC_WIDTHS = {"T": 33, "H1": 128, "H2": 160, "D": 128}
@@ -54,7 +57,9 @@ TC_MAX_C = 32
 
 
 def tc_route(dtype: torch.dtype, C: int, T: int, H1: int, H2: int, D: int) -> bool:
-    """Whether these operands run on the tensor-core route."""
+    """Whether these operands run on the tensor-core launches (bf16 at the
+    net's widths); float32 runs the SIMT kernel, bf16 at other widths
+    raises on the card."""
     return (dtype == torch.bfloat16 and 0 < C <= TC_MAX_C
             and dict(T=T, H1=H1, H2=H2, D=D) == TC_WIDTHS)
 
@@ -186,7 +191,7 @@ def pack_pileup_operands(trunk: Sequence[torch.Tensor], heads: Sequence[torch.Te
     """Cast, check, pad and pack the net's operands for ``dtype`` on
     ``device``; ``trunk`` is ``(wi1, wh1, b1, wi2, wh2, b2, wd, bd)`` with
     ``wd [T, 2*H2, D]``, ``heads`` ``(w5, b5, wo, bo)`` per head."""
-    if dtype not in _DTYPE_CODE:
+    if dtype not in _DTYPES:
         raise ValueError(f"pileup kernel: unsupported compute dtype {dtype}")
     ops = tuple(w.detach().to(device, dtype).contiguous() for w in trunk)
     device = ops[0].device  # with its index: "cuda" -> "cuda:0"
@@ -263,6 +268,14 @@ def _check_tc(t: torch.Tensor, packed: PackedPileup, what: str, width: int) -> N
                          f"contiguous [B, {T}, {width}] {packed.dtype} tensor")
 
 
+def _empty_out(B: int, packed: PackedPileup, n_heads: int, device) -> torch.Tensor:
+    """Probabilities ``[B, O]`` float32, or the trunk ``[B, D]`` in the
+    compute dtype when ``n_heads`` is 0."""
+    if n_heads:
+        return torch.empty(B, packed.offsets[n_heads], dtype=torch.float32, device=device)
+    return torch.empty(B, packed.trunk[6].shape[-1], dtype=packed.dtype, device=device)
+
+
 def launch_l1(x: torch.Tensor, packed: PackedPileup) -> torch.Tensor:
     """L1 on the card: ``x [B, T, C]`` (compute dtype, contiguous) ->
     ``h1seq [B, T, 2*H1]``."""
@@ -278,6 +291,7 @@ def launch_l1(x: torch.Tensor, packed: PackedPileup) -> torch.Tensor:
             _device_index(x.device), _ptr(x), _ptr(fr["wi1"]), _ptr(fr["wh1"]),
             _ptr(packed.trunk[2]), _ptr(h1seq), B, T, C, H1,
             _stream(x.device)), "pileup_l1_tc")
+        kernel_launches["pileup_l1_tc"] += 1
     return h1seq
 
 
@@ -295,6 +309,7 @@ def launch_l2(h1seq: torch.Tensor, packed: PackedPileup) -> torch.Tensor:
             _device_index(h1seq.device), _ptr(h1seq), _ptr(fr["wi2"]), _ptr(fr["wh2"]),
             _ptr(packed.trunk[5]), _ptr(h2seq), B, T, H1, H2,
             _stream(h1seq.device)), "pileup_l2_tc")
+        kernel_launches["pileup_l2_tc"] += 1
     return h2seq
 
 
@@ -308,22 +323,20 @@ def launch_head(h2seq: torch.Tensor, packed: PackedPileup, with_heads: bool = Tr
     B, T, _ = h2seq.shape
     H2, D = packed.trunk[4].shape[1], packed.trunk[6].shape[-1]
     n_heads = packed.n_heads if with_heads else 0
-    if n_heads:
-        w5, b5, wo, bo = packed.stacked
-        out = torch.empty(B, packed.offsets[n_heads], dtype=torch.float32, device=h2seq.device)
-    else:
-        w5 = b5 = wo = bo = None
-        out = torch.empty(B, D, dtype=packed.dtype, device=h2seq.device)
+    w5, b5, wo, bo = packed.stacked if n_heads else (None,) * 4
+    out = _empty_out(B, packed, n_heads, h2seq.device)
     if B:
         L5 = w5.shape[-1] if n_heads else 1
         check(load_library().clair3t_pileup_head(
             _device_index(h2seq.device), _ptr(h2seq), _ptr(packed.frags["wd"]),
             _ptr(packed.trunk[7]), *(_ptr(t) for t in (w5, b5, wo, bo)), _ptr(out),
             B, T, H2, D, L5, n_heads, *packed.offsets, _stream(h2seq.device)), "pileup_head")
+        kernel_launches["pileup_head"] += 1
     return out
 
 
-def _launch_simt(x: torch.Tensor, packed: PackedPileup, n_heads: int, out: torch.Tensor):
+def _launch_simt(x: torch.Tensor, packed: PackedPileup, n_heads: int) -> torch.Tensor:
+    """The float32 SIMT kernel on ``x [B, T, C]`` (B > 0)."""
     from clair3_tpu_torch.ops._build import check, load_library
 
     B, T, C = x.shape
@@ -332,33 +345,41 @@ def _launch_simt(x: torch.Tensor, packed: PackedPileup, n_heads: int, out: torch
     w5, b5, wo, bo = packed.stacked if n_heads else (None,) * 4
     L5 = w5.shape[-1] if n_heads else 1
     h1_seq = torch.empty(T, B, 2 * H1, dtype=packed.dtype, device=x.device)
+    out = _empty_out(B, packed, n_heads, x.device)
     check(load_library().clair3t_pileup_full(
-        _DTYPE_CODE[packed.dtype], _device_index(x.device),
+        _device_index(x.device),
         *(_ptr(t) for t in (x, wi1, wh1, b1, wi2, wh2, b2, wd, bd, w5, b5, wo, bo,
                             h1_seq, out)),
         B, T, C, H1, H2, D, L5, n_heads, *packed.offsets, _stream(x.device)), "pileup_full")
+    kernel_launches["pileup_full"] += 1
+    return out
 
 
 def _run(x: torch.Tensor, packed: PackedPileup, with_heads: bool) -> torch.Tensor:
-    """Launch the route's kernels on ``x`` (one call: 1 or 3 launches)."""
+    """Launch the route's kernels on ``x``: one call is the SIMT kernel
+    (float32) or L1, L2 and L3 (bf16)."""
     global launches
+    if packed.dtype == torch.bfloat16 and not packed.tc:
+        wi1, wh1, wh2, wd = (packed.trunk[i] for i in (0, 1, 4, 6))
+        raise ValueError(
+            "pileup kernel: bf16 runs on the tensor-core launches, which take the net's "
+            f"widths {TC_WIDTHS} and C <= {TC_MAX_C}; these operands have T={wd.shape[0]}, "
+            f"H1={wh1.shape[1]}, H2={wh2.shape[1]}, D={wd.shape[-1]}, C={wi1.shape[1]} "
+            "(use float32)")
     _check_input(x, packed, "input")
-    dt = packed.dtype
-    x = x.to(dt).contiguous()
+    x = x.to(packed.dtype).contiguous()
     B, T, C = x.shape
     wi1, wd = packed.trunk[0], packed.trunk[6]
     if (T, C) != (wd.shape[0], wi1.shape[1]):
         raise ValueError(f"pileup kernel: input {tuple(x.shape)} does not match the "
                          f"weights (T={wd.shape[0]}, C={wi1.shape[1]})")
     n_heads = packed.n_heads if with_heads else 0
-    if B == 0 or not packed.tc:
-        out = (torch.empty(B, packed.offsets[n_heads], dtype=torch.float32, device=x.device)
-               if n_heads else torch.empty(B, wd.shape[-1], dtype=dt, device=x.device))
-        if B == 0:
-            return out
-        _launch_simt(x, packed, n_heads, out)
-    else:
+    if B == 0:
+        return _empty_out(B, packed, n_heads, x.device)
+    if packed.tc:
         out = launch_head(launch_l2(launch_l1(x, packed), packed), packed, with_heads)
+    else:
+        out = _launch_simt(x, packed, n_heads)
     launches += 1
     return out
 

@@ -60,10 +60,14 @@ def test_kernel_matches_plain(device, batch, which, dtype, tol):
     trunk, heads = net.kernel_operands()
     x = torch.from_numpy(random_counts(batch, (batch, 33, 18))).to(device)
     with torch.inference_mode():
-        before = pf.launches
+        before, kernels = pf.launches, dict(pf.kernel_launches)
         got = pf.pileup_full(x, *trunk, heads, compute_dtype=dtype)
         torch.cuda.synchronize()
         assert pf.launches == before + 1
+        # f32: the SIMT kernel; bf16: the three tensor-core launches
+        tc = dtype == torch.bfloat16
+        assert {k: v - kernels[k] for k, v in pf.kernel_launches.items()} == {
+            "pileup_l1_tc": tc, "pileup_l2_tc": tc, "pileup_head": tc, "pileup_full": not tc}
         assert got.shape == (batch, 24 if which == "hifi" else 90)
         assert torch.isfinite(got).all()
         want = pf.pileup_full_reference(x, *trunk, heads, compute_dtype=torch.float32)
@@ -118,6 +122,23 @@ def test_pileup_tc_empty_batch_launches_nothing(device):
     with torch.inference_mode():
         out = net(torch.zeros(0, 33, 18, dtype=torch.int16, device=device))
     assert out.shape == (0, 24) and pf.launches == before
+
+
+def test_bf16_at_other_widths_is_refused(device):
+    """bf16 runs only on the tensor-core launches, at the net's widths:
+    other widths raise and launch nothing."""
+    rs = np.random.RandomState(3)
+    shapes = ((2, 4, 64), (2, 16, 64), (2, 64), (2, 32, 64), (2, 16, 64), (2, 64), (5, 32, 8),
+              (8,))
+    trunk = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(device) for s in shapes]
+    x = torch.from_numpy(random_counts(1, (4, 5, 4))).to(device)
+    before = dict(pf.kernel_launches)
+    with pytest.raises(ValueError, match="widths"):
+        pf.pileup_trunk(x, *trunk, compute_dtype=torch.bfloat16)
+    assert pf.kernel_launches == before
+    got = pf.pileup_trunk(x, *trunk, compute_dtype=torch.float32)
+    want = pf.pileup_trunk_reference(x, *trunk, compute_dtype=torch.float32)
+    assert (got - want).abs().max().item() <= 2e-4 * max(1.0, want.abs().max().item())
 
 
 def test_pileup_tc_refused_launch_raises(device):

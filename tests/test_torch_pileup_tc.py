@@ -196,6 +196,15 @@ def test_route_by_dtype_and_shape():
         "wi2": (2, 16, 10, 4, 32, 2, 4), "wh2": (2, 10, 10, 4, 32, 2, 4),
         "wd": (660, 8, 1, 32, 2, 4)}
     assert all(v.dtype == torch.bfloat16 and v.is_contiguous() for v in bf.frags.values())
+    # bf16 at other widths: packed for the plain version, refused by the launches
+    args = [torch.zeros(s) for s in ((2, 4, 32), (2, 8, 32), (2, 32), (2, 16, 32), (2, 8, 32),
+                                     (2, 32), (5, 16, 8), (8,))]
+    narrow = pf.pack_pileup_operands(args, (), torch.bfloat16, "cpu")
+    assert not narrow.tc and narrow.frags is None
+    before = dict(pf.kernel_launches)
+    with pytest.raises(ValueError, match="widths"):
+        pf._run(torch.zeros(2, 5, 4), narrow, with_heads=False)
+    assert pf.kernel_launches == before
 
 
 def test_packed_route_on_the_cpu_is_the_plain_net():
@@ -203,9 +212,9 @@ def test_packed_route_on_the_cpu_is_the_plain_net():
     x = torch.from_numpy(random_counts(4, (5, 33, 18)))
     for dt in (torch.float32, torch.bfloat16):
         packed = pf.pack_pileup_operands(trunk, heads, dt, "cpu")
-        before = pf.launches
+        before, kernels = pf.launches, dict(pf.kernel_launches)
         got = pf.pileup_full_packed(x, packed)
-        assert pf.launches == before
+        assert pf.launches == before and pf.kernel_launches == kernels
         assert torch.equal(got, pf.pileup_full_reference(x, *trunk, heads, compute_dtype=dt))
         assert torch.equal(pf.pileup_trunk_packed(x, packed),
                            pf.pileup_trunk(x, *trunk, compute_dtype=dt))
