@@ -2,7 +2,7 @@
 """Chip check of the PyTorch port (clair3_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                # every phase, ends with the ok line
-    python3 chip_smoke.py --phases 1,5   # the build and the named phases only
+    python3 chip_smoke.py --phases 1,6   # the build and the named phases only
 
 Needs one CUDA device, nvcc, g++ and the repository's sources; exits
 non-zero without them.  Imports only the port: it loads neither jax, flax
@@ -85,8 +85,38 @@ Phase 5  holds the BiLSTM recurrence kernel against its plain twins
          the same weights within 1e-4; times the kernel in both layouts and
          the twin beside the bound, and the module against nn.LSTM (the
          library call), at B = 1024, 4096, f32 and bf16.
+Phase 6  drives the rest of the inference surface through the port's CLI,
+         every run at bf16 unless named, each with its kernel counts set to 0
+         just before it and read just after:
+         - ONT: a simulated 80 kb ONT region (seed 91; depth 89, the dwell
+           channel read from simulated mv tags) with the committed ONT nets
+           and --enable_dwell_time, the call of the JAX package's ONT gate
+           (tests/test_trained_fixture_cascade.py), at bf16 and f32: SNP F1
+           >= 0.97 and INDEL F1 >= 0.93 at bf16, FA rows > 10, every FA
+           batch 89 x 33 x 9 with a non-zero dwell channel, bytes_shipped
+           below the dense count; bf16-vs-f32 row changes printed;
+         - .pt: the hifi nets written as the reference's pileup.pt and
+           full_alignment.pt (write_reference_checkpoints) and called with
+           --model_path on the phase-3 region: pileup.vcf.gz rows equal the
+           .npz bf16 run's, merge_output.vcf.gz passes
+           vcf_rows_numerically_equivalent with flip budget 0 (byte
+           equality printed), the hifi F1 gates, and the pileup operands
+           packed once, under one cache key for every forward;
+         - serve: build_server(device=cuda) on the hifi nets, warmed as
+           `serve` warms them, on 127.0.0.1, then `call --remote_engines`
+           on the phase-3 region: rows against the local bf16 run within
+           flip budget 0 (byte equality printed); the kernels counted in
+           the serving engines; server.stats() and the remote wall time
+           beside the local one printed;
+         - profile: a warm hifi call with --profile_dir: the Chrome trace
+           holds CUDA kernel events of L1, L2 and L3; prints the device-busy
+           share (summed kernel time over the call's wall time) and the
+           kernels that take it.
+         Every run launches L1, L2 and L3 once per pileup call and the SIMT
+         kernel never (f32: the reverse), and no plain pileup forward runs
+         on the card.
 
-With --phases (a comma-separated subset of 1-5) only those phases run (the
+With --phases (a comma-separated subset of 1-6) only those phases run (the
 kernels are built in any case) and the script ends without the kernels'
 record and the ok line.  Otherwise the line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
@@ -126,9 +156,16 @@ EVAL_SEED = 91
 GATE_SNP_F1 = 0.990
 GATE_INDEL_F1 = 0.992
 DEVICE = "cuda"
-PHASES = (1, 2, 3, 4, 5)
+PHASES = (1, 2, 3, 4, 5, 6)
 CALL_ARGS = ["--platform", "hifi", "--indel_min_af", "0.12", "--threads", "4",
              "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
+# the ONT region and gates of tests/test_trained_fixture_cascade.py
+ONT_EVAL_BP = 80_000
+GATE_ONT_SNP_F1 = 0.97
+GATE_ONT_INDEL_F1 = 0.93
+ONT_CALL_ARGS = ["--platform", "ont", "--snp_min_af", "0.08", "--indel_min_af", "0.15",
+                 "--threads", "4", "--var_pct_full", "0.7", "--ref_pct_full", "0.1",
+                 "--enable_dwell_time"]
 
 
 def check(cond, msg):
@@ -184,16 +221,13 @@ def k1_macs(trunk, heads):
     return 33 * lstm + wd.numel() + sum(w.numel() for w in heads if w.dim() == 2)
 
 
-def route_launches(pf, before, dt, calls):
-    """The kernels launched since ``before`` (a copy of
-    ``pf.kernel_launches``): each kernel of ``dt``'s route ``calls`` times,
-    the other route's never.  Returns the launches by kernel."""
+def route_launches(got, dt, calls, label):
+    """``got`` (launches by kernel) is each kernel of ``dt``'s route
+    ``calls`` times and the other route's never."""
     tc = dt == "torch.bfloat16"
-    got = {k: v - before[k] for k, v in pf.kernel_launches.items()}
     want = {"pileup_l1_tc": calls * tc, "pileup_l2_tc": calls * tc, "pileup_head": calls * tc,
             "pileup_full": calls * (not tc)}
-    check(got == want, f"{dt}: pileup kernels launched {got}, expected {want}")
-    return got
+    check(got == want, f"{label}: pileup kernels launched {got}, expected {want}")
 
 
 def phase2_kernel_vs_plain(torch, nets, real):
@@ -216,7 +250,8 @@ def phase2_kernel_vs_plain(torch, nets, real):
                     before = dict(pf.kernel_launches)
                     got = pf.pileup_full(x, *trunk, heads, compute_dtype=dt)
                     torch.cuda.synchronize()
-                    route_launches(pf, before, str(dt), 1)
+                    route_launches({k: v - before[k] for k, v in pf.kernel_launches.items()},
+                                   str(dt), 1, str(dt))
                     same = pf.pileup_full_reference(x, *trunk, heads, compute_dtype=dt)
                     ref32 = pf.pileup_full_reference(x, *trunk, heads, compute_dtype=f32)
                     check(got.shape == ref32.shape and bool(torch.isfinite(got).all()),
@@ -334,6 +369,44 @@ def _rows(path):
         return [line for line in fh if not line.startswith("#")]
 
 
+def write_reference_checkpoints(pileup_npz, fa_npz, out_dir):
+    """``pileup.pt`` and ``full_alignment.pt`` in the reference's torch
+    layout (the inverse of ``models/convert.py``) from two .npz checkpoints,
+    written to ``out_dir``.  An LSTM's one bias ``b`` becomes
+    ``bias_ih = b``, ``bias_hh = 0``, so converting back is exact."""
+    import numpy as np
+    import torch
+
+    from clair3_tpu_torch.models.params_io import flatten_tree, load_variables
+
+    for src, name in ((pileup_npz, "pileup.pt"), (fa_npz, "full_alignment.pt")):
+        sd = {}
+        for key, v in flatten_tree(load_variables(src)).items():
+            collection, *path = key.split("/")
+            leaf = path[-1]
+            if path[0].startswith("LSTM"):  # LSTMn/{fwd,bwd}/{wi,wh,b}
+                suffix = "_reverse" if path[1] == "bwd" else ""
+                if leaf == "b":
+                    sd[f"{path[0]}.bias_ih_l0{suffix}"] = v
+                    sd[f"{path[0]}.bias_hh_l0{suffix}"] = np.zeros_like(v)
+                else:
+                    gate = "ih" if leaf == "wi" else "hh"
+                    sd[f"{path[0]}.weight_{gate}_l0{suffix}"] = v.T
+                continue
+            if path[0].startswith("res_block"):
+                path.insert(1, "0")  # the reference wraps each block in nn.Sequential
+            if collection == "batch_stats":
+                path[-1] = "running_" + leaf
+            elif leaf == "kernel":  # Dense [in, out], conv [kh, kw, I, O]
+                path[-1] = "weight"
+                v = v.T if v.ndim == 2 else v.transpose(3, 2, 0, 1)
+            elif leaf == "scale":
+                path[-1] = "weight"
+            sd[".".join(path)] = v
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()},
+                   os.path.join(out_dir, name))
+
+
 def rows_changed(out_a, out_b, name):
     """Rows of ``name`` whose call (REF/ALT/GT, or present on one side
     only) or source (INFO P/F: a candidate routed across the QUAL-quantile
@@ -398,95 +471,372 @@ class _LogTap(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-PHASE3_RUNS = (("bf16", "bf16", {}), ("fp32", "fp32", {}),
-               ("bf16+fa_conv1", "bf16", {"CLAIR3T_ENABLE_FA_CONV1": "1"}))
-
-
-def phase3_cascade(torch, work, fasta, bam, variants):
+def counted_call(torch, tag, label, argv, env=None):
+    """``clair3_tpu_torch call`` with ``argv``, in this process, with every
+    kernel count set to 0 just before it and read just after.  Prints the
+    pipeline's stage lines and each engine it loaded with its bytes_shipped
+    beside the dense count (and checks it is below).  Returns the wall time,
+    the counts, the engines and how often the pileup operands were packed."""
     from clair3_tpu_torch import cli as port_cli
-    from clair3_tpu_torch.io.vcf import VcfReader, VcfRecord
     from clair3_tpu_torch.models import pileup as pileup_model
     from clair3_tpu_torch.ops import fa_conv1 as k3
     from clair3_tpu_torch.ops import pileup_full as pf
-    from clair3_tpu_torch.postprocess import variant_metrics
-    from clair3_tpu_torch.testing import trained_fixture_path
 
-    truth = [VcfRecord("chr1", v.pos + 1, v.ref, v.alt, 60, "PASS", ".", "GT",
-                       "1/1" if v.genotype == (1, 1) else "0/1") for v in variants]
-    tap = _LogTap()
-    logging.getLogger().addHandler(tap)
-    logging.getLogger().setLevel(logging.INFO)
-    engines = []
-    load_engine = port_cli._load_engine
+    engines, packs = [], []
+    load_engine, pack = port_cli._load_engine, pileup_model.pack_pileup_operands
 
     def recording_load_engine(*args, **kwargs):
         engine = load_engine(*args, **kwargs)
         engines.append((args[1], engine))
         return engine
 
-    port_cli._load_engine = recording_load_engine
+    def recording_pack(*args, **kwargs):
+        packs.append(1)
+        return pack(*args, **kwargs)
+
+    tap = _LogTap()
+    root = logging.getLogger()
+    root.addHandler(tap)
+    root.setLevel(logging.INFO)
+    port_cli._load_engine, pileup_model.pack_pileup_operands = recording_load_engine, recording_pack
+    env = env or {}
+    os.environ.update(env)
+    pf.launches = 0
+    pf.kernel_launches.update(dict.fromkeys(pf.kernel_launches, 0))
+    k3.launches = 0
+    pileup_model.plain_cuda_forwards = 0
+    t0 = time.time()
+    try:
+        rc = port_cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        port_cli._load_engine, pileup_model.pack_pileup_operands = load_engine, pack
+        root.removeHandler(tap)
+        for key in env:
+            del os.environ[key]
+    wall = time.time() - t0
+    result = {"wall": wall, "calls": pf.launches, "kernels": dict(pf.kernel_launches),
+              "conv1": k3.launches, "plain": pileup_model.plain_cuda_forwards,
+              "engines": engines, "packs": len(packs)}
+    check(rc == 0, f"call at {label} returned {rc}")
+    for line in tap.lines:
+        if line.startswith(("[pileup]", "[select]", "[timing]")):
+            print(f"[{tag}] {label} {line}")
+    for kind, engine in engines:
+        print_bytes_shipped(tag, f"{label} {kind}", engine)
+    return result
+
+
+def print_bytes_shipped(tag, label, engine):
+    ratio = engine.bytes_shipped / engine.dense_bytes
+    print(f"[{tag}] {label} engine: bytes_shipped {engine.bytes_shipped} "
+          f"against {engine.dense_bytes} dense ({ratio:.4f}x)")
+    check(engine.bytes_shipped < engine.dense_bytes,
+          f"{label}: the compact forms shipped no fewer bytes than dense")
+
+
+def score(out, variants):
+    """(full-alignment rows, variant_metrics of the merged PASS rows
+    against the simulated truth)."""
+    from clair3_tpu_torch.io.vcf import VcfReader, VcfRecord
+    from clair3_tpu_torch.postprocess import variant_metrics
+
+    truth = [VcfRecord("chr1", v.pos + 1, v.ref, v.alt, 60, "PASS", ".", "GT",
+                       "1/1" if v.genotype == (1, 1) else "0/1") for v in variants]
+    fa_rows = sum(1 for _ in VcfReader(os.path.join(out, "full_alignment.vcf.gz")))
+    query = [r for r in VcfReader(os.path.join(out, "merge_output.vcf.gz"))
+             if r.filter in ("PASS", ".")]
+    return fa_rows, variant_metrics(truth, query)
+
+
+def f1_text(m):
+    return (f"SNP F1 {m['SNP'].f1:.6f} (P {m['SNP'].precision:.6f} R {m['SNP'].recall:.6f}), "
+            f"INDEL F1 {m['INDEL'].f1:.6f} (P {m['INDEL'].precision:.6f} "
+            f"R {m['INDEL'].recall:.6f})")
+
+
+def check_pileup_route(torch, label, r, flag):
+    """The pileup kernels ran on the card and the plain pileup path never
+    did: at bf16 L1, L2 and L3 once per call and the SIMT kernel never, at
+    f32 the reverse."""
+    check(r["calls"] > 0, f"{label}: the pileup kernel never launched")
+    route_launches(r["kernels"], str(torch.bfloat16 if flag == "bf16" else torch.float32),
+                      r["calls"], label)
+    check(r["plain"] == 0, f"{label}: the plain pileup path ran on the card")
+
+
+PHASE3_RUNS = (("bf16", "bf16", {}), ("fp32", "fp32", {}),
+               ("bf16+fa_conv1", "bf16", {"CLAIR3T_ENABLE_FA_CONV1": "1"}))
+
+
+def hifi_argv(fasta, bam, out, flag, *models):
+    """`call` on the phase-3 region at ``flag``, with the committed hifi nets
+    unless ``models`` names others."""
+    from clair3_tpu_torch.testing import trained_fixture_path
+
+    models = models or ("--pileup_model", trained_fixture_path("pileup_hifi.npz"),
+                        "--full_alignment_model", trained_fixture_path("fa_hifi.npz"))
+    return ["call", "--bam_fn", bam, "--ref_fn", fasta, "--output", out,
+            *models, "--device", DEVICE, "--compute_dtype", flag, *CALL_ARGS]
+
+
+def phase3_cascade(torch, work, fasta, bam, variants):
     outs, result = {}, {}
     for label, flag, env in PHASE3_RUNS:
         out = os.path.join(work, f"out_{label}")
-        argv = ["call", "--bam_fn", bam, "--ref_fn", fasta, "--output", out,
-                "--pileup_model", trained_fixture_path("pileup_hifi.npz"),
-                "--full_alignment_model", trained_fixture_path("fa_hifi.npz"),
-                "--device", DEVICE, "--compute_dtype", flag, *CALL_ARGS]
-        del tap.lines[:]
-        del engines[:]
-        os.environ.update(env)
-        pf.launches = 0
-        pf.kernel_launches.update(dict.fromkeys(pf.kernel_launches, 0))
-        k3.launches = 0
-        pileup_model.plain_cuda_forwards = 0
-        t0 = time.time()
-        rc = port_cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches, conv1, plain = pf.launches, k3.launches, pileup_model.plain_cuda_forwards
-        kernels = dict(pf.kernel_launches)
-        for key in env:
-            del os.environ[key]
-        check(rc == 0, f"call at {label} returned {rc}")
+        r = counted_call(torch, "phase3", label, hifi_argv(fasta, bam, out, flag), env)
         outs[label] = out
-        for line in tap.lines:
-            if line.startswith(("[pileup]", "[select]", "[timing]")):
-                print(f"[phase3] {label} {line}")
-        for kind, engine in engines:
-            ratio = engine.bytes_shipped / engine.dense_bytes
-            print(f"[phase3] {label} {kind} engine: bytes_shipped {engine.bytes_shipped} "
-                  f"against {engine.dense_bytes} dense ({ratio:.4f}x)")
-            check(engine.bytes_shipped < engine.dense_bytes,
-                  f"{label} {kind}: the compact forms shipped no fewer bytes than dense")
-        fa_rows = sum(1 for _ in VcfReader(os.path.join(out, "full_alignment.vcf.gz")))
-        query = [r for r in VcfReader(os.path.join(out, "merge_output.vcf.gz"))
-                 if r.filter in ("PASS", ".")]
-        m = variant_metrics(truth, query)
-        print(f"[phase3] {label}: wall {wall:.2f} s, pileup kernel calls {launches} "
-              f"(launches {kernels}), "
-              f"FA conv1 kernel launches {conv1}, plain pileup forwards on the card {plain}, "
-              f"FA rows {fa_rows}, "
-              f"SNP F1 {m['SNP'].f1:.6f} (P {m['SNP'].precision:.6f} R {m['SNP'].recall:.6f}), "
-              f"INDEL F1 {m['INDEL'].f1:.6f} (P {m['INDEL'].precision:.6f} "
-              f"R {m['INDEL'].recall:.6f})")
-        check(launches > 0, f"{label}: the pileup kernel never launched")
-        # bf16: L1, L2 and L3 once per call, the SIMT kernel never; f32 the reverse
-        route_launches(pf, dict.fromkeys(kernels, 0),
-                       str(torch.bfloat16 if flag == "bf16" else torch.float32), launches)
-        check(plain == 0, f"{label}: the plain pileup path ran on the card")
+        fa_rows, m = score(out, variants)
+        print(f"[phase3] {label}: wall {r['wall']:.2f} s, pileup kernel calls {r['calls']} "
+              f"(launches {r['kernels']}), "
+              f"FA conv1 kernel launches {r['conv1']}, plain pileup forwards on the card "
+              f"{r['plain']}, FA rows {fa_rows}, {f1_text(m)}")
+        check_pileup_route(torch, label, r, flag)
         check(fa_rows > 10, f"{label}: FA stage never engaged ({fa_rows} rows)")
         if env:
-            check(conv1 > 0, f"{label}: the FA conv1 kernel never launched")
+            check(r["conv1"] > 0, f"{label}: the FA conv1 kernel never launched")
         else:
-            check(conv1 == 0, f"{label}: the FA conv1 kernel launched without the opt-in")
+            check(r["conv1"] == 0, f"{label}: the FA conv1 kernel launched without the opt-in")
         if flag == "bf16":
             check(m["SNP"].f1 >= GATE_SNP_F1, f"{label}: SNP F1 {m['SNP'].f1}")
             check(m["INDEL"].f1 >= GATE_INDEL_F1, f"{label}: INDEL F1 {m['INDEL'].f1}")
-        result[label] = {"pileup_full": launches, "pileup_kernels": kernels, "fa_conv1": conv1}
-    port_cli._load_engine = load_engine
-    logging.getLogger().removeHandler(tap)
+        result[label] = {"pileup_full": r["calls"], "pileup_kernels": r["kernels"],
+                         "fa_conv1": r["conv1"], "out": out, "wall": r["wall"]}
     bf16_vs_f32(outs["bf16"], outs["fp32"])
     conv1_vs_default(outs["bf16+fa_conv1"], outs["bf16"])
+    return result
+
+
+def rows_equivalent(tag, label, out_a, out_b, name):
+    """``name``'s rows of two runs: byte-identical rows counted, and
+    vcf_rows_numerically_equivalent with flip budget 0 checked."""
+    from clair3_tpu_torch.testing import vcf_rows_numerically_equivalent
+
+    a, b = _rows(os.path.join(out_a, name)), _rows(os.path.join(out_b, name))
+    ok, stats = vcf_rows_numerically_equivalent(a, b, flip_budget=0.0)
+    print(f"[{tag}] {label} {name}: {len(set(a) & set(b))}/{len(a)} rows byte-identical "
+          f"({len(b)} rows); max dQUAL {stats['max_dqual']:.2f}, max dGQ {stats['max_dgq']}, "
+          f"max dPL {stats['max_dpl']}, flips {stats['flips']}")
+    check(len(a) > 50, f"{label} {name}: too few rows")
+    check(ok, f"{label} {name}: {stats['violations']}")
+
+
+def phase6_ont(torch, work):
+    """The simulated ONT region at bf16 and f32 (the dwell channel from the
+    BAM's mv tags); returns the bf16 call's counts."""
+    import numpy as np
+
+    from clair3_tpu_torch.pipeline.engine import InferenceEngine
+    from clair3_tpu_torch.testing import simulate, trained_fixture_path
+
+    t0 = time.time()
+    os.makedirs(os.path.join(work, "ont"))
+    fasta, bam, _, variants = simulate(os.path.join(work, "ont"), ONT_EVAL_BP, seed=EVAL_SEED,
+                                       platform="ont")
+    print(f"[phase6] simulated ONT {ONT_EVAL_BP} bp, {len(variants)} variants in "
+          f"{time.time() - t0:.2f} s")
+    predict_async = InferenceEngine.predict_async
+    fa_batches = []
+
+    def recording(self, x):
+        if x.ndim == 4:  # a full-alignment batch: (shape, |dwell channel| summed)
+            fa_batches.append((x.shape[1:], int(np.abs(x[..., -1].astype(np.int64)).sum())))
+        return predict_async(self, x)
+
+    outs, result = {}, None
+    for flag in ("bf16", "fp32"):
+        out = os.path.join(work, f"ont_{flag}")
+        argv = ["call", "--bam_fn", bam, "--ref_fn", fasta, "--output", out,
+                "--pileup_model", trained_fixture_path("pileup_ont.npz"),
+                "--full_alignment_model", trained_fixture_path("fa_ont.npz"),
+                "--device", DEVICE, "--compute_dtype", flag, *ONT_CALL_ARGS]
+        del fa_batches[:]
+        InferenceEngine.predict_async = recording
+        try:
+            r = counted_call(torch, "phase6", f"ont {flag}", argv)
+        finally:
+            InferenceEngine.predict_async = predict_async
+        outs[flag] = out
+        fa_rows, m = score(out, variants)
+        dwell = sum(d for _, d in fa_batches)
+        print(f"[phase6] ont {flag}: wall {r['wall']:.2f} s, pileup kernel calls {r['calls']} "
+              f"(launches {r['kernels']}), plain pileup forwards on the card {r['plain']}, "
+              f"FA rows {fa_rows}, FA batches {len(fa_batches)} of "
+              f"{sorted({tuple(s) for s, _ in fa_batches})}, |dwell channel| {dwell}, "
+              f"{f1_text(m)}")
+        check_pileup_route(torch, f"ont {flag}", r, flag)
+        check(fa_rows > 10, f"ont {flag}: FA stage never engaged ({fa_rows} rows)")
+        check(fa_batches and all(tuple(s) == (89, 33, 9) for s, _ in fa_batches),
+              f"ont {flag}: FA batches {fa_batches[:3]}")
+        check(dwell > 0, f"ont {flag}: the dwell channel is empty")
+        if flag == "bf16":
+            check(m["SNP"].f1 >= GATE_ONT_SNP_F1, f"ont: SNP F1 {m['SNP'].f1}")
+            check(m["INDEL"].f1 >= GATE_ONT_INDEL_F1, f"ont: INDEL F1 {m['INDEL'].f1}")
+            result = r
+    for name in ("pileup.vcf.gz", "merge_output.vcf.gz"):
+        changed, n, dq = rows_changed(outs["fp32"], outs["bf16"], name)
+        print(f"[phase6] ont bf16 vs f32 {name}: {len(changed)}/{n} rows changed call or "
+              f"source; max QUAL delta {dq['P']:.2f} on pileup rows, {dq['F']:.2f} on "
+              f"full-alignment rows")
+    return result
+
+
+def phase6_pt(torch, work, fasta, bam, variants, base):
+    """The hifi nets as the reference's .pt files: the rows of the .npz
+    run, and one packing of the pileup operands, whose key every call
+    keeps."""
+    from clair3_tpu_torch.models import PileupNet
+    from clair3_tpu_torch.testing import trained_fixture_path
+
+    models = os.path.join(work, "pt_models")
+    os.makedirs(models)
+    write_reference_checkpoints(trained_fixture_path("pileup_hifi.npz"),
+                                trained_fixture_path("fa_hifi.npz"), models)
+    keys = []
+    packed_operands = PileupNet.packed_operands
+
+    def recording(self, dtype, device):
+        packed = packed_operands(self, dtype, device)
+        keys.append(self._packed[0])
+        return packed
+
+    out = os.path.join(work, "out_pt")
+    PileupNet.packed_operands = recording
+    try:
+        r = counted_call(torch, "phase6", "pt", hifi_argv(fasta, bam, out, "bf16",
+                                                          "--model_path", models))
+    finally:
+        PileupNet.packed_operands = packed_operands
+    fa_rows, m = score(out, variants)
+    print(f"[phase6] pt: wall {r['wall']:.2f} s, pileup kernel calls {r['calls']} "
+          f"(launches {r['kernels']}), plain pileup forwards on the card {r['plain']}, "
+          f"operand packings {r['packs']}, distinct cache keys {len(set(keys))} over "
+          f"{len(keys)} forwards, FA rows {fa_rows}, {f1_text(m)}")
+    check_pileup_route(torch, "pt", r, "bf16")
+    check(r["packs"] == 1 and len(keys) == r["calls"] and len(set(keys)) == 1,
+          f"pt: {r['packs']} packings, {len(set(keys))} keys over {len(keys)} forwards")
+    check(_rows(os.path.join(out, "pileup.vcf.gz")) == _rows(os.path.join(base, "pileup.vcf.gz")),
+          "pt: pileup.vcf.gz rows differ from the .npz run's")
+    print("[phase6] pt pileup.vcf.gz: rows byte-identical to the .npz run's")
+    rows_equivalent("phase6", "pt vs npz", base, out, "merge_output.vcf.gz")
+    check(fa_rows > 10, f"pt: FA stage never engaged ({fa_rows} rows)")
+    check(m["SNP"].f1 >= GATE_SNP_F1, f"pt: SNP F1 {m['SNP'].f1}")
+    check(m["INDEL"].f1 >= GATE_INDEL_F1, f"pt: INDEL F1 {m['INDEL'].f1}")
+    return r
+
+
+def phase6_serve(torch, work, fasta, bam, base, walls):
+    """`call --remote_engines` against build_server(device=cuda) on
+    127.0.0.1: the kernels count in the serving engines of this process.
+    ``walls``: the local runs' wall times to print beside the remote one."""
+    import numpy as np
+
+    from clair3_tpu_torch.serve import build_server
+    from clair3_tpu_torch.testing import trained_fixture_path
+
+    server = build_server(None, platform="hifi", compute_dtype="bf16", host="127.0.0.1",
+                          port=0, pileup_model=trained_fixture_path("pileup_hifi.npz"),
+                          fa_model=trained_fixture_path("fa_hifi.npz"), device=DEVICE)
+    for kind, engine in server.engines.items():  # as `serve` warms them
+        engine.warmup((33, 18) if kind == "pileup" else (55, 33, 8),
+                      np.int32 if kind == "pileup" else np.int8)
+    address = server.serve_background()
+    out = os.path.join(work, "out_remote")
+    try:
+        r = counted_call(torch, "phase6", "remote",
+                         ["call", "--bam_fn", bam, "--ref_fn", fasta, "--output", out,
+                          "--remote_engines", address, *CALL_ARGS])
+        stats = server.stats()
+    finally:
+        server.shutdown()
+    local = ", ".join(f"{w:.2f} s {name}" for name, w in walls)
+    print(f"[phase6] remote: wall {r['wall']:.2f} s against local bf16 runs {local}; "
+          f"pileup kernel calls {r['calls']} (launches {r['kernels']}), "
+          f"plain pileup forwards on the card {r['plain']}, server stats {stats}")
+    for kind, engine in server.engines.items():
+        print_bytes_shipped("phase6", f"served {kind}", engine)
+    check_pileup_route(torch, "remote", r, "bf16")
+    for name in ("pileup.vcf.gz", "merge_output.vcf.gz"):
+        rows_equivalent("phase6", "remote vs local", base, out, name)
+    return r, stats
+
+
+def kernel_time_by_origin(events):
+    """Milliseconds of CUDA kernel time in a Chrome trace by (net, origin):
+    the net is the engine forward (``PileupNet.forward``, ...) whose span
+    holds the launching CPU op, the origin that op's name, or the kernel's
+    own name where no op launched it (the port's kernels)."""
+    ops, spans = {}, []
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            ops[e.get("args", {}).get("External id")] = e
+        elif e.get("cat") == "user_annotation" and e.get("name", "").endswith(".forward"):
+            spans.append(e)
+
+    def net_of(op):
+        for sp in spans:
+            if sp["tid"] == op["tid"] and sp["ts"] <= op["ts"] <= sp["ts"] + sp["dur"]:
+                return sp["name"].split(".")[0]
+        return "outside the nets"
+
+    out = {}
+    for k in events:
+        if k.get("cat") != "kernel":
+            continue
+        op = ops.get(k.get("args", {}).get("External id"))
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", k["name"])
+        key = ((net_of(op), op["name"]) if op is not None else
+               ("-", re.sub(r"<.*", "", name.split("(")[0])))
+        out[key] = out.get(key, 0.0) + k["dur"] / 1e3
+    return out
+
+
+def phase6_profile(torch, work, fasta, bam, warm_wall):
+    """A warm hifi call with --profile_dir: the trace's CUDA kernel events,
+    L1, L2 and L3 among them, and the device-busy share (summed kernel time
+    over the call's wall time, and over ``warm_wall``, an unprofiled warm
+    run of the same call)."""
+    trace_dir = os.path.join(work, "trace")
+    r = counted_call(torch, "phase6", "profile",
+                     hifi_argv(fasta, bam, os.path.join(work, "out_profile"), "bf16")
+                     + ["--profile_dir", trace_dir])
+    with open(os.path.join(trace_dir, "call.pt.trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_ms = sum(e["dur"] for e in kernels) / 1e3
+    share = busy_ms / 1e3 / warm_wall
+    counts = {k: sum(1 for e in kernels if k + "_kernel" in e["name"])
+              for k in ("pileup_l1_tc", "pileup_l2_tc", "pileup_head")}
+    print(f"[phase6] profile: wall {r['wall']:.2f} s profiled, {len(kernels)} kernel events, "
+          f"summed kernel time {busy_ms:.3f} ms: device busy "
+          f"{100 * busy_ms / 1e3 / r['wall']:.2f}% of the profiled wall, "
+          f"{100 * share:.2f}% of the unprofiled warm run's {warm_wall:.2f} s; "
+          f"pileup kernel events {counts} against launches {r['kernels']}")
+    by_origin = sorted(kernel_time_by_origin(events).items(), key=lambda kv: -kv[1])
+    for (net, origin), ms in by_origin[:12]:
+        print(f"[phase6] profile kernel time {ms:8.3f} ms ({100 * ms / busy_ms:5.1f}% of busy) "
+              f"{net:17s} {origin[:70]}")
+    check_pileup_route(torch, "profile", r, "bf16")
+    check(all(counts.values()), f"profile: no L1/L2/L3 kernel events in the trace ({counts})")
+    return r, share
+
+
+def phase6_surface(torch, work, fasta, bam, variants, base):
+    """The rest of the inference surface on the card: ONT with the dwell
+    channel, .pt checkpoints, a served engine behind --remote_engines and a
+    --profile_dir trace.  ``base`` is phase 3's bf16 run (None: run it)."""
+    if base is None:
+        out = os.path.join(work, "out_bf16")
+        r = counted_call(torch, "phase6", "bf16", hifi_argv(fasta, bam, out, "bf16"))
+        check_pileup_route(torch, "bf16", r, "bf16")
+        base = {"out": out, "wall": r["wall"]}
+    result = {"ont": phase6_ont(torch, work)}
+    result["pt"] = phase6_pt(torch, work, fasta, bam, variants, base["out"])
+    warm = result["pt"]["wall"]  # a warm local bf16 run of the same region
+    result["remote"], result["server"] = phase6_serve(
+        torch, work, fasta, bam, base["out"],
+        (("(first of the process, .npz)", base["wall"]), ("(warm, .pt)", warm)))
+    result["profile"], result["busy"] = phase6_profile(torch, work, fasta, bam, warm)
     return result
 
 
@@ -831,7 +1181,7 @@ def main(argv=None) -> int:
 
     try:
         with tempfile.TemporaryDirectory() as work:
-            if phases & {2, 3, 4}:
+            if phases & {2, 3, 4, 6}:
                 fasta, bam, variants, real, real_fa = setup(work)
             if 2 in phases:
                 dev = torch.device(DEVICE)
@@ -850,6 +1200,9 @@ def main(argv=None) -> int:
                     k3_timing, k3_worst = phase4_fa_conv1(torch, np.asarray(real_fa))
             if 5 in phases:
                 k2_timing, k2_worst, k2_launches, k2_library = phase5_bilstm(torch)
+            if 6 in phases:
+                phase6_surface(torch, work, fasta, bam, variants,
+                               launches["bf16"] if 3 in phases else None)
     finally:
         shutdown_decode_pool()
 

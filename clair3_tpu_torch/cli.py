@@ -1,17 +1,29 @@
-"""Command-line interface of the port: ``python -m clair3_tpu_torch call``.
+"""Command-line interface of the port: ``python -m clair3_tpu_torch
+{call,serve}``.
 
-The argument surface is ``clair3_tpu.cli._add_call_args`` plus ``--device``
-(the counterpart of ``JAX_PLATFORMS``).  That function, the input
-validation, the model-file resolution and the dwell-channel reconciliation
-are copies of the JAX CLI's framework-free helpers (held equal to them by
-``tests/test_torch_copies.py``).  ``cmd_call`` checks model-zoo names and
-probes the BAM for move tables in the JAX CLI's order, before any engine
-loads.  ``--device cuda`` (the default) raises when no GPU is present:
-there is no silent CPU path.
+The argument surface of ``call`` is ``clair3_tpu.cli._add_call_args`` plus
+``--device`` (the counterpart of ``JAX_PLATFORMS``).  That function, the
+input validation, the model-file resolution, the dwell-channel
+reconciliation and ``cmd_serve`` are copies of the JAX CLI's framework-free
+code (held equal to it by ``tests/test_torch_copies.py``).  ``cmd_call``
+checks model-zoo names and probes the BAM for move tables in the JAX CLI's
+order, before any engine loads.  Both nets load from ``.npz`` or from the
+reference's ``.pt`` state dicts (``models/convert.py``).  ``--device cuda``
+(the default) raises when no GPU is present: there is no silent CPU path.
 
-Not yet ported (exit 1 with a message): ``.pt`` checkpoints,
-``--remote_engines``, ``--dist_*``, ``--profile_dir`` and whatshap/longphase
-phasing.
+    # a directory with pileup.{npz,pt} and full_alignment.{npz,pt}; ONT with
+    # the dwell channel read from the BAM's mv tags
+    python -m clair3_tpu_torch call --bam_fn in.bam --ref_fn ref.fa \
+        --output out --model_path DIR --platform ont --enable_dwell_time
+    # the nets on one GPU host, extraction and decode elsewhere
+    python -m clair3_tpu_torch serve --model_path DIR --platform ont --device cuda
+    python -m clair3_tpu_torch call ... --remote_engines http://gpu-host:8618
+    # a torch.profiler Chrome trace of the run
+    python -m clair3_tpu_torch call ... --profile_dir trace/
+
+Intermediate phasing runs in-process unless
+``--use_{whatshap,longphase}_for_intermediate_phasing`` hands it to that
+binary.  Not yet ported (exit 1 with a message): ``--dist_*``.
 """
 
 from __future__ import annotations
@@ -98,7 +110,7 @@ def _add_call_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--remote_engines", default=None, metavar="URL",
                    help="run forward passes on a `clair3_tpu_torch serve` engine "
                         "server (e.g. http://gpu-host:8618); no local "
-                        "models needed")
+                        "models needed, and --device is not used")
     p.add_argument("--use_phasing_for_final_output", action="store_true",
                    help="phase the final merged VCF (internal phaser)")
     # external-phaser interop (reference run_clair3.py:116-117,148-150):
@@ -251,14 +263,18 @@ def _use_kernel_fa_conv1(device: torch.device, compute_dtype: torch.dtype) -> bo
 
 def load_model(path: str, kind: str, device: torch.device,
                compute_dtype: torch.dtype) -> torch.nn.Module:
-    """A net from a .npz checkpoint, on ``device``, in eval mode, with its
-    kernels switched as ``_use_kernel_pileup`` and ``_use_kernel_fa_conv1``
-    say."""
+    """A net from a .npz checkpoint or a reference ``.pt`` state dict, on
+    ``device``, in eval mode, with its kernels switched as
+    ``_use_kernel_pileup`` and ``_use_kernel_fa_conv1`` say."""
     from clair3_tpu_torch.models import FullAlignmentNet, PileupNet
     from clair3_tpu_torch.models.bridge import from_jax_variables
+    from clair3_tpu_torch.models.convert import convert_checkpoint
     from clair3_tpu_torch.models.params_io import load_variables
 
-    variables = load_variables(path)
+    if path.endswith(".pt"):
+        variables = convert_checkpoint(path, kind)
+    else:
+        variables = load_variables(path)
     params = variables["params"]
     if kind == "pileup":
         model = PileupNet(add_indel_length="L5_3" in params,
@@ -294,19 +310,9 @@ def _load_engine(path: str, kind: str, device: torch.device,
 
 
 def _not_yet_ported(args) -> Optional[str]:
-    if args.remote_engines:
-        return "--remote_engines"
     if (args.dist_coordinator is not None or args.dist_num_processes
             or args.dist_process_id is not None):
         return "--dist_* (multi-process calling)"
-    if args.profile_dir:
-        return "--profile_dir"
-    if (args.use_whatshap_for_intermediate_phasing
-            or args.use_longphase_for_intermediate_phasing):
-        return "whatshap/longphase intermediate phasing"
-    for path in _model_paths(args):
-        if path and not path.endswith(".npz"):
-            return f".pt checkpoints ({path})"
     return None
 
 
@@ -318,6 +324,26 @@ def _model_paths(args):
         fa_path = fa_path or resolve_model_file(args.model_path,
                                                 args.fa_model_prefix)
     return pileup_path, fa_path
+
+
+def _profiled_run(caller, profile_dir: str, device: Optional[torch.device]):
+    """``caller.run()`` under ``torch.profiler``: CPU activity on every
+    thread (the engines run their nets on their own submitter threads), and
+    CUDA activity when the nets run on a GPU; the Chrome trace goes to
+    ``{profile_dir}/call.pt.trace.json``."""
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities,
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+        outputs = caller.run()
+    path = os.path.join(profile_dir, "call.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[INFO] profile: {path}", file=sys.stderr)
+    return outputs
 
 
 def cmd_call(args: argparse.Namespace) -> int:
@@ -401,7 +427,8 @@ def cmd_call(args: argparse.Namespace) -> int:
               file=sys.stderr)
         args.pileup_only = True
 
-    device = resolve_device(args.device)
+    # a --remote_engines client loads no net and runs nothing on a device
+    device = None if args.remote_engines else resolve_device(args.device)
     fields = {f.name for f in dataclasses.fields(CallConfig)}
     cfg = CallConfig(**{k: v for k, v in vars(args).items() if k in fields})
 
@@ -410,6 +437,23 @@ def cmd_call(args: argparse.Namespace) -> int:
 
         pileup_engine = PileupOracleEngine()
         fa_engine = None if args.pileup_only else FullAlignmentOracleEngine()
+    elif args.remote_engines:
+        # forward passes on a serving GPU host (`clair3_tpu_torch serve`);
+        # this process only extracts and decodes
+        from clair3_tpu_torch.serve import RemoteEngine
+
+        try:
+            pileup_engine = RemoteEngine(args.remote_engines, "pileup",
+                                         platform=args.platform)
+            fa_engine = None
+            if not args.pileup_only:
+                fa_engine = RemoteEngine(args.remote_engines, "full_alignment",
+                                         platform=args.platform)
+        except Exception as exc:
+            print(f"[ERROR] {exc}", file=sys.stderr)
+            return 1
+        if fa_engine is not None:
+            _reconcile_dwell(fa_engine, cfg)
     else:
         pileup_path, fa_path = _model_paths(args)
         if pileup_path is None:
@@ -429,15 +473,85 @@ def cmd_call(args: argparse.Namespace) -> int:
 
     phaser = None
     if fa_engine is not None and not cfg.no_phasing_for_fa:
-        from clair3_tpu_torch.phase import ReadBackedPhaser
+        if (args.use_whatshap_for_intermediate_phasing
+                or args.use_longphase_for_intermediate_phasing):
+            from clair3_tpu_torch.phase.external import ExternalPhaser
 
-        phaser = ReadBackedPhaser(cfg.bam_fn, min_mq=max(cfg.min_mq, 20))
+            tool = ("longphase" if args.use_longphase_for_intermediate_phasing
+                    else "whatshap")
+            phaser = ExternalPhaser(
+                tool, cfg.bam_fn, cfg.ref_fn, platform=cfg.platform,
+                binary=getattr(args, tool), threads=cfg.threads,
+                work_dir=cfg.output_dir, sample=cfg.sample_name)
+        else:
+            from clair3_tpu_torch.phase import ReadBackedPhaser
+
+            phaser = ReadBackedPhaser(cfg.bam_fn, min_mq=max(cfg.min_mq, 20))
 
     caller = VariantCaller(cfg, pileup_engine=pileup_engine,
                            fa_engine=fa_engine, phaser=phaser)
-    outputs = caller.run()
+    if args.profile_dir:
+        outputs = _profiled_run(caller, args.profile_dir, device)
+    else:
+        outputs = caller.run()
     for name, path in outputs.items():
         print(f"[INFO] {name}: {path}")
+    return 0
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    """Serve the production inference engines over HTTP (GPU host side of
+    the remote-inference split; reference analogue: the Triton serving
+    mode, CallVariantsFromCffi.py:201-214)."""
+    import numpy as np
+
+    from clair3_tpu_torch.config import PLATFORMS
+    from clair3_tpu_torch.serve import build_server
+
+    if not args.model_path and not args.pileup_model:
+        print("[ERROR] serve needs --model_path or --pileup_model",
+              file=sys.stderr)
+        return 1
+    if args.model_path:
+        from clair3_tpu_torch.models.zoo import (lookup_model, name_implies_dwell,
+                                           validate_model_choice)
+
+        zoo_info = lookup_model(args.model_path)
+        if zoo_info is not None:
+            err = validate_model_choice(zoo_info, args.platform)
+            if err:
+                print(f"[ERROR] {err}", file=sys.stderr)
+                return 1
+        if (zoo_info.dwell if zoo_info is not None
+                else name_implies_dwell(args.model_path)):
+            # mirror the `call` dwell notice so GPU-host operators see it
+            # too: clients must extract with the dwell channel (mv/ts tags)
+            name = os.path.basename(os.path.normpath(args.model_path))
+            print(f"[INFO] '{name}' is a signal-aware (*_with_mv) model: "
+                  "clients must send 9-channel full-alignment tensors "
+                  "(dwell enabled; BAM needs mv/ts basecaller tags)",
+                  file=sys.stderr)
+    server = build_server(
+        args.model_path, platform=args.platform,
+        compute_dtype=args.compute_dtype, host=args.host, port=args.port,
+        pileup_model=args.pileup_model, fa_model=args.full_alignment_model,
+        device=args.device)
+    # compile every bucket up front so first client batches are fast
+    plat = PLATFORMS[args.platform]
+    for kind, eng in server.engines.items():
+        if not hasattr(eng, "warmup"):
+            continue
+        if kind == "pileup":
+            eng.warmup((33, 18), np.int32)
+        else:
+            ch = getattr(eng, "fa_input_channels", 8)
+            eng.warmup((plat.matrix_depth, 33, ch), np.int8)
+    print(f"[INFO] serving {sorted(server.engines)} on {server.address}",
+          file=sys.stderr)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
     return 0
 
 
@@ -457,5 +571,24 @@ def main(argv=None) -> int:
                         help="device of both nets; cuda raises when no GPU "
                              "is present")
     call_p.set_defaults(func=cmd_call)
+
+    srv = sub.add_parser(
+        "serve", help="serve the inference engines over HTTP (remote "
+                      "calling hosts use `call --remote_engines`)")
+    srv.add_argument("--model_path", default=None,
+                     help="directory with pileup.{npz,pt} / "
+                          "full_alignment.{npz,pt}")
+    srv.add_argument("--pileup_model", default=None)
+    srv.add_argument("--full_alignment_model", default=None)
+    srv.add_argument("--platform", default="ont",
+                     choices=("ont", "hifi", "ilmn"))
+    srv.add_argument("--compute_dtype", default="auto",
+                     choices=("auto", "fp32", "bf16"))
+    srv.add_argument("--host", default="0.0.0.0")
+    srv.add_argument("--port", type=int, default=8618)
+    srv.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                     help="device of the served nets; cuda raises when no GPU "
+                          "is present")
+    srv.set_defaults(func=cmd_serve)
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     return args.func(args)

@@ -2,8 +2,10 @@
 
 The same format as ``clair3_tpu/models/params_io.py`` (e.g.
 ``params/LSTM1/fwd/wi``), re-implemented because ``clair3_tpu.models``
-imports flax.  ``load_variables`` upcasts fp16 leaves to f32, as
-``clair3_tpu.testing.load_trained_fixture`` does for the committed fixtures.
+imports flax.  ``save_variables`` is the JAX package's (for
+``models/convert.py::main``); ``load_variables`` upcasts fp16 leaves to
+f32, as ``clair3_tpu.testing.load_trained_fixture`` does for the committed
+fixtures.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return tree
+
+
+def save_variables(path: str, variables: Dict) -> None:
+    np.savez(path, **flatten_tree(variables))
 
 
 def load_variables(path: str, upcast: bool = True) -> Dict:

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from clair3_tpu_torch.ops import fa_compact as _fa_compact
 from clair3_tpu_torch.ops import pileup_compact as _pileup_compact
@@ -84,6 +85,8 @@ class InferenceEngine:
         self.bytes_shipped = 0
         self.dense_bytes = 0
         self.fa_input_channels: Optional[int] = None
+        # the forward's name in a torch.profiler trace
+        self._label = f"{type(model).__name__}.forward"
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._submitter = ThreadPoolExecutor(
@@ -209,11 +212,12 @@ class InferenceEngine:
                              * np.dtype(self.transfer_dtype or chunk.dtype).itemsize)
         host = {k: self._host_plane(v) for k, v in planes.items()}
         if self._stream is None:
-            with torch.inference_mode():
+            with torch.inference_mode(), record_function(self._label):
                 return self.model(self._net_input(form, host, full_depth)), None
         with torch.cuda.stream(self._stream), torch.inference_mode():
             dev = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-            y = self.model(self._net_input(form, dev, full_depth))
+            with record_function(self._label):
+                y = self.model(self._net_input(form, dev, full_depth))
             out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
             out.copy_(y, non_blocking=True)
             done = torch.cuda.Event()

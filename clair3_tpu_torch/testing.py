@@ -3,8 +3,10 @@ the synthetic calling cases of the JAX package.
 
 ``random_variables``, ``random_counts`` and ``bf16_ulps`` are the port's
 own.  The read simulator (``SimVariant`` .. ``write_test_case``), the two
-numpy oracle engines behind ``--use_oracle_engines`` and
-``trained_fixture_path`` are copied from ``clair3_tpu/testing.py``, and
+numpy oracle engines behind ``--use_oracle_engines``,
+``trained_fixture_path`` and the VCF-row parity check
+``vcf_rows_numerically_equivalent`` are copied from
+``clair3_tpu/testing.py``, and
 ``PLATFORMS`` and ``simulate`` from ``scripts/full_cascade_demo.py``;
 ``tests/test_torch_copies.py`` holds each equal to its original.
 """
@@ -503,6 +505,131 @@ def trained_fixture_path(name: str) -> str:
 
     return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "tests", "fixtures", "trained", name)
+
+
+def vcf_rows_numerically_equivalent(
+    a: Sequence[str], b: Sequence[str],
+    qual_tol: float = 0.5, gq_tol: int = 1, pl_tol: int = 1,
+    flip_budget: float = 0.0, lone_qual_max: float = 20.0,
+) -> Tuple[bool, Dict]:
+    """Structured VCF-row parity across compute dtypes/backends.
+
+    Byte-identity between a bf16 TPU run and its f32 CPU twin is
+    unattainable for two reasons:
+
+    * probabilities differ in the last decimals, so the printed QUAL and
+      occasionally the derived integer GQ/PL move by one unit;
+    * the FA routing cutoff is a QUANTILE of those probabilities, so a
+      candidate sitting exactly at the cutoff can be routed to the
+      full-alignment stage in one run and kept as a pileup call in the
+      other (INFO tag F vs P) — a discrete flip from float noise, bounded
+      by how many candidates straddle the cutoff.
+
+    Rows are joined by (CHROM, POS).  Same-source rows must agree on
+    every discrete field (REF/ALT/FILTER/INFO/GT/DP/AD/AF byte-identical)
+    with |dQUAL| <= qual_tol, |dGQ| <= gq_tol, per-entry |dPL| <= pl_tol.
+    Source-flipped rows (INFO exactly P-vs-F, or a position present on one
+    side only) must still agree on REF/ALT/GT when paired, and their total
+    count must be <= flip_budget * rows.  A one-sided row only counts
+    against the budget when it is plausibly a routing artifact — a ref
+    call (GT 0/0 or ./., or FILTER RefCall) or a low-QUAL call
+    (QUAL <= lone_qual_max, the routed quantiles are the low-QUAL tail);
+    a confidently-called lone variant is a violation regardless of budget,
+    and any paired INFO difference other than P-vs-F fails outright.
+
+    Returns (ok, stats); stats records max deltas, the flip count, and
+    the first violations.
+    """
+    stats: Dict = {"rows": len(a), "max_dqual": 0.0, "max_dgq": 0,
+                   "max_dpl": 0, "flips": 0, "violations": []}
+
+    def _fail(key, what):
+        if len(stats["violations"]) < 8:
+            stats["violations"].append(f"{key}: {what}")
+
+    def _index(rows):
+        out = {}
+        for r in rows:
+            f = r.rstrip("\n").split("\t")
+            out[(f[0], int(f[1]))] = f
+        return out
+
+    ia, ib = _index(a), _index(b)
+    for key in set(ia) ^ set(ib):
+        stats["flips"] += 1
+        side = "production" if key in ia else "twin"
+        f = (ia.get(key) or ib.get(key))
+        if flip_budget == 0.0:
+            _fail(key, f"row only in {side} run")
+            continue
+        gt = f[9].split(":", 1)[0] if len(f) > 9 else ""
+        is_ref_call = gt in ("0/0", "./.") or "RefCall" in f[6]
+        try:
+            low_qual = float(f[5]) <= lone_qual_max
+        except ValueError:
+            low_qual = False
+        if not (is_ref_call or low_qual):
+            _fail(key, f"confident variant row only in {side} run "
+                       f"(QUAL {f[5]}, GT {gt}): not a routing artifact")
+
+    for key in sorted(set(ia) & set(ib)):
+        fa, fb = ia[key], ib[key]
+        if fa == fb:
+            continue
+        gt_a = fa[9].split(":", 1)[0] if len(fa) > 9 else ""
+        gt_b = fb[9].split(":", 1)[0] if len(fb) > 9 else ""
+        if fa[7] != fb[7]:
+            if {fa[7], fb[7]} != {"P", "F"}:
+                # only the P<->F source tag may differ; any other INFO
+                # delta is a regression, not a routing boundary
+                _fail(key, f"INFO {fa[7]!r} vs {fb[7]!r} (not a P/F "
+                           f"routing flip)")
+                continue
+            stats["flips"] += 1
+            if fa[3] != fb[3] or fa[4] != fb[4] or gt_a != gt_b:
+                _fail(key, f"source flip changed the call: "
+                           f"{fa[3]}>{fa[4]} {gt_a} vs {fb[3]}>{fb[4]} {gt_b}")
+            continue
+        if len(fa) != len(fb):
+            _fail(key, "field count")
+            continue
+        for col in (2, 3, 4, 6, 7, 8):
+            if col < len(fa) and fa[col] != fb[col]:
+                _fail(key, f"column {col}: {fa[col]!r} vs {fb[col]!r}")
+        try:
+            dq = abs(float(fa[5]) - float(fb[5]))
+        except ValueError:
+            dq = 0.0 if fa[5] == fb[5] else float("inf")
+        stats["max_dqual"] = max(stats["max_dqual"], dq)
+        if dq > qual_tol:
+            _fail(key, f"QUAL {fa[5]} vs {fb[5]}")
+        if len(fa) > 9:
+            keys = fa[8].split(":")
+            va, vb = fa[9].split(":"), fb[9].split(":")
+            for k, xa, xb in zip(keys, va, vb):
+                if xa == xb:
+                    continue
+                if k == "GQ":
+                    d = abs(int(xa) - int(xb))
+                    stats["max_dgq"] = max(stats["max_dgq"], d)
+                    if d > gq_tol:
+                        _fail(key, f"GQ {xa} vs {xb}")
+                elif k == "PL":
+                    try:
+                        d = max(abs(int(p) - int(q)) for p, q in
+                                zip(xa.split(","), xb.split(",")))
+                    except ValueError:
+                        d = pl_tol + 1
+                    stats["max_dpl"] = max(stats["max_dpl"], d)
+                    if d > pl_tol or xa.count(",") != xb.count(","):
+                        _fail(key, f"PL {xa} vs {xb}")
+                else:
+                    _fail(key, f"{k} {xa!r} vs {xb!r}")
+    if stats["flips"] > flip_budget * max(len(a), 1):
+        stats["violations"].append(
+            f"{stats['flips']} routing flips > budget "
+            f"{flip_budget:.4f} * {len(a)} rows")
+    return not stats["violations"], stats
 
 
 PLATFORMS = {

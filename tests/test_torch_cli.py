@@ -1,16 +1,22 @@
 """The port's CLI surface: device and dtype resolution, the flags that are
 not ported yet (exit 1 with a message, before any input is read), model-zoo
 names and the move-table probe (twins of ``tests/test_zoo.py``, with the
-JAX CLI's exit codes), and the help text."""
+JAX CLI's exit codes), external phasers (twins of
+``tests/test_external_phaser.py``, with its stub binaries), ``--profile_dir``,
+a ``--remote_engines`` client on a host without a GPU, and the help text."""
 
+import json
 import os
 import re
 import shutil
+import socket
 
 import pytest
 import torch
+from test_external_phaser import LONGPHASE_STUB, WHATSHAP_STUB, _write_stub
 
-from clair3_tpu_torch.testing import trained_fixture_path
+from clair3_tpu_torch.io.vcf import VcfReader
+from clair3_tpu_torch.testing import SimVariant, random_reference, trained_fixture_path
 from clair3_tpu_torch.cli import main, resolve_compute_dtype, resolve_device
 
 CPU = torch.device("cpu")
@@ -36,18 +42,14 @@ def test_cuda_without_a_gpu_raises():
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--remote_engines", "http://localhost:1"], "--remote_engines"),
     (["--dist_num_processes", "2"], "--dist_*"),
-    (["--profile_dir", "trace"], "--profile_dir"),
-    (["--use_whatshap_for_intermediate_phasing"], "whatshap"),
-    (["--pileup_model", "pileup.pt"], ".pt checkpoints"),
+    (["--dist_process_id", "0"], "--dist_*"),
 ])
 def test_unported_flags_exit_1(tmp_path, capsys, extra, what):
     argv = ["call", "--bam_fn", str(tmp_path / "missing.bam"),
             "--ref_fn", str(tmp_path / "missing.fa"), "--output", str(tmp_path / "out"),
-            "--device", "cpu", *extra]
-    if "--pileup_model" not in extra and "--model_path" not in extra:
-        argv += ["--pileup_model", trained_fixture_path("pileup_hifi.npz")]
+            "--device", "cpu", "--pileup_model", trained_fixture_path("pileup_hifi.npz"),
+            *extra]
     assert main(argv) == 1
     err = capsys.readouterr().err
     assert "not yet ported" in err and what in err
@@ -181,3 +183,75 @@ def test_help_describes_the_port(capsys, monkeypatch):
     assert not re.search(r"\bTPU\b", text)
     for word in ("tpu-host", "jax"):
         assert word not in text, word
+
+
+def test_remote_engines_client_needs_no_device(tmp_path, capsys, tagless_case):
+    """A --remote_engines client loads no net: with the default --device
+    cuda and no GPU it does not raise; an unreachable server exits 1 with
+    the connection error, before any extraction."""
+    with socket.socket() as sock:  # a local port that nothing listens on
+        sock.bind(("127.0.0.1", 0))
+        url = f"http://127.0.0.1:{sock.getsockname()[1]}"
+    fa, bam = tagless_case
+    rc = main(["call", "--bam_fn", bam, "--ref_fn", fa, "--output", str(tmp_path / "out"),
+               "--platform", "hifi", "--remote_engines", url])
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert "[ERROR]" in err and "refused" in err and "not yet ported" not in err
+    assert not os.path.exists(tmp_path / "out" / "pileup.vcf.gz")
+
+
+def test_profile_dir_writes_a_trace(tmp_path, tagless_case):
+    """--profile_dir on the CPU: a Chrome trace that parses as JSON and
+    names both nets' forwards and the pileup net's recurrence ops, which
+    run on the engine's own submitter thread."""
+    fa, bam = tagless_case
+    trace_dir = tmp_path / "trace"
+    assert _call(tmp_path, bam, fa, "--platform", "hifi", "--threads", "1",
+                 "--pileup_model", trained_fixture_path("pileup_hifi.npz"),
+                 "--full_alignment_model", trained_fixture_path("fa_hifi.npz"),
+                 "--profile_dir", str(trace_dir)) == 0
+    with open(trace_dir / "call.pt.trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"PileupNet.forward", "FullAlignmentNet.forward", "aten::tanh",
+            "aten::sigmoid"} <= names
+    forwards = {e["tid"] for e in events if e.get("name") == "PileupNet.forward"}
+    assert forwards and forwards == {e["tid"] for e in events if e.get("name") == "aten::tanh"}
+
+
+@pytest.fixture(scope="module")
+def het_case(tmp_path_factory):
+    """The case of tests/test_external_phaser.py: six het SNPs on 4 kb."""
+    from clair3_tpu_torch.testing import write_test_case
+
+    d = tmp_path_factory.mktemp("extphase")
+    ref = random_reference(4000, seed=77)
+    variants = [SimVariant(p, ref[p], "A" if ref[p] != "A" else "T", (0, 1))
+                for p in (500, 900, 1300, 1700, 2100, 2500)]
+    fasta, bam, _, _ = write_test_case(str(d), ref_length=4000, variants=variants,
+                                       coverage=24, read_length=900, seed=77, error_rate=0.01)
+    return fasta, bam, variants
+
+
+@pytest.mark.parametrize("tool,stub", [("whatshap", WHATSHAP_STUB),
+                                       ("longphase", LONGPHASE_STUB)])
+def test_cascade_with_external_phaser(tmp_path, het_case, tool, stub):
+    """Twin of tests/test_external_phaser.py::test_cli_cascade_with_external_whatshap,
+    and the same with longphase: the stub binary runs per contig and the
+    cascade completes with every het SNP called het."""
+    fasta, bam, variants = het_case
+    binary = _write_stub(str(tmp_path / tool), stub)
+    out_dir = tmp_path / "out"
+    rc = main(["call", "--bam_fn", bam, "--ref_fn", fasta, "--output_dir", str(out_dir),
+               "--platform", "ont", "--use_oracle_engines", "--device", "cpu",
+               "--var_pct_full", "1.0", "--ref_pct_full", "1.0", "--var_pct_phasing", "0.1",
+               f"--use_{tool}_for_intermediate_phasing", f"--{tool}", binary])
+    assert rc == 0
+    recs = {r.pos: r for r in VcfReader(str(out_dir / "merge_output.vcf.gz"))}
+    for v in variants:
+        assert recs[v.pos + 1].genotype in ((0, 1), (1, 0))
+    # the stub really ran: the phaser's intermediates are in the output tree
+    phased = "phased_chr1.vcf.gz" if tool == "whatshap" else "phased_chr1.vcf"
+    assert os.path.exists(out_dir / "phase_vcf" / "chr1.vcf")
+    assert os.path.exists(out_dir / "phase_vcf" / phased)

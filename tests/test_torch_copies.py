@@ -20,7 +20,8 @@ JAX = os.path.join(REPO, "clair3_tpu")
 PORT = os.path.join(REPO, "clair3_tpu_torch")
 
 VERBATIM = [
-    "config.py", "gvcf.py", "postprocess.py", "models/zoo.py",
+    "config.py", "gvcf.py", "postprocess.py",
+    "models/convert.py", "models/schema.py", "models/zoo.py",
     "task/__init__.py", "task/labels.py", "utils/__init__.py",
     "io/__init__.py", "io/arith.py", "io/bai.py", "io/bam.py", "io/bed.py", "io/bgzf.py",
     "io/cram.py", "io/fasta.py", "io/fqzcomp.py", "io/rans.py", "io/rans_nx16.py",
@@ -100,16 +101,47 @@ EDITED = {
     ],
     # enable_compilation_cache imports jax; the decoder needs the rest
     "utils/common.py": [("CUT", "enable_compilation_cache")],
+    # the server loads the port's engines on a device; the wire format, the
+    # coalescer, the server and the client are the JAX package's
+    "serve.py": [
+        ('"""Remote inference serving: a TPU-resident engine server + thin client.',
+         '"""Remote inference serving: a GPU-resident engine server + thin client.'),
+        ("The\nTPU-native equivalent is this pair:", "The\nport's equivalent is this pair:"),
+        ("  production engines on the TPU host (bf16 + Pallas + compact wire forms,\n"
+         "  exactly `cli call`'s engines)",
+         "  production engines on the GPU host (bf16 + CUDA kernels + compact wire\n"
+         "  forms, exactly `cli call`'s engines)"),
+        ("  forward passes execute on the serving TPU.", "  forward passes execute on the serving GPU."),
+        ("submitter thread (jit dispatch already serialized)",
+         "submitter thread (one CUDA stream per engine)"),
+        ('                 fa_prefix: str = "full_alignment") -> EngineServer:\n'
+         '    """Load `cli call`\'s production engines and wrap them in a server."""\n'
+         "    from clair3_tpu_torch.cli import _load_engine, resolve_model_file\n",
+         '                 fa_prefix: str = "full_alignment",\n'
+         '                 device: str = "cuda") -> EngineServer:\n'
+         '    """Load `cli call`\'s production engines on ``device`` and wrap them in\n'
+         '    a server; ``cuda`` raises when no GPU is visible."""\n'
+         "    from clair3_tpu_torch.cli import (_load_engine, resolve_compute_dtype, resolve_device,\n"
+         "                                      resolve_model_file)\n\n"
+         "    dev = resolve_device(device)\n"
+         "    dt = resolve_compute_dtype(compute_dtype, dev)\n"),
+        ("        engines[kind] = _load_engine(path, kind, platform,\n"
+         "                                     compute_dtype=compute_dtype)\n",
+         "        engines[kind] = _load_engine(path, kind, dev, dt)\n"),
+    ],
 }
 
 # port module -> (original, the definitions copied into it, edits by name)
 DEFINITIONS = {
     # the help text describes the port's backend, not the TPU's
     "cli.py": ("clair3_tpu/cli.py", ["_add_call_args", "_reconcile_dwell",
-                                     "resolve_model_file", "_validate_call_inputs"], {
+                                     "resolve_model_file", "_validate_call_inputs",
+                                     "cmd_serve"], {
         "_add_call_args": [
-            ('"server (e.g. http://tpu-host:8618); no local "',
-             '"server (e.g. http://gpu-host:8618); no local "'),
+            ('"server (e.g. http://tpu-host:8618); no local "\n'
+             '                        "models needed")',
+             '"server (e.g. http://gpu-host:8618); no local "\n'
+             '                        "models needed, and --device is not used")'),
             ('help="inference compute dtype; auto = bf16 on TPU "\n'
              '                        "(benchmarked production config), fp32 elsewhere")',
              'help="inference compute dtype; auto = bf16 on CUDA, "\n'
@@ -118,11 +150,23 @@ DEFINITIONS = {
             ('help="coordinator address host:port of process 0 "\n'
              '                        "(omit on TPU pod slices with runtime bootstrap)")',
              'help="coordinator address host:port of process 0")'),
+        ],
+        # the engines load on --device; the kernels need no compilation cache
+        "cmd_serve": [
+            ("(TPU host side of", "(GPU host side of"),
+            ("    from clair3_tpu_torch.utils.common import enable_compilation_cache\n", ""),
+            ("so TPU-host operators", "so GPU-host operators"),
+            ("    enable_compilation_cache()\n", ""),
+            ("fa_model=args.full_alignment_model)",
+             "fa_model=args.full_alignment_model,\n        device=args.device)"),
         ]}),
+    # convert.py's main writes .npz through the JAX package's save_variables
+    "models/params_io.py": ("clair3_tpu/models/params_io.py", ["save_variables"], {}),
     "testing.py": ("clair3_tpu/testing.py", [
         "BASES", "_FA_BASE_FROM_VAL", "SimVariant", "random_reference",
         "_read_from_reference", "simulate_reads", "write_test_case", "PileupOracleEngine",
-        "FullAlignmentOracleEngine", "trained_fixture_path"], {}),
+        "FullAlignmentOracleEngine", "trained_fixture_path",
+        "vcf_rows_numerically_equivalent"], {}),
     # simulate() drops its import of the simulator, which is its own module here
     "testing.py#demo": ("scripts/full_cascade_demo.py", ["PLATFORMS", "simulate"], {
         "simulate": [("    from clair3_tpu_torch.testing import SimVariant, random_reference, "
@@ -213,6 +257,6 @@ def test_every_copy_is_listed():
                     shared.add(rel)
     # the port's own modules that share a name with the JAX package's
     own = {"__init__.py", "__main__.py", "models/__init__.py", "models/full_alignment.py",
-           "models/params_io.py", "models/pileup.py", "ops/__init__.py", "ops/lstm.py",
+           "models/pileup.py", "ops/__init__.py", "ops/lstm.py",
            "pipeline/__init__.py", "pipeline/engine.py"}
     assert shared - own == listed, sorted((shared - own) ^ listed)

@@ -50,6 +50,13 @@ def test_file_does_not_use_the_jax_package(rel):
     assert not uses, f"{rel}: {uses}"
 
 
+def test_every_port_module_is_checked():
+    files = set(_port_files())
+    for rel in ("serve.py", "models/convert.py", "models/schema.py", "models/params_io.py",
+                "cli.py"):
+        assert os.path.join("clair3_tpu_torch", rel) in files, rel
+
+
 @pytest.mark.parametrize("source,n", [
     ("import clair3_tpu\n", 1),
     ("import clair3_tpu.native as n\n", 1),

@@ -4,7 +4,10 @@ case of the verify recipe with the committed hifi nets, once where the
 import system refuses those packages (a host without them) and once where
 they are importable (a GPU host may have jax installed; the port must
 still not load it).  The refusal matches the top-level name exactly, so
-`clair3_tpu_torch` itself loads."""
+`clair3_tpu_torch` itself loads.  With them refused, the same call also
+runs from the reference's `.pt` files (`models/convert.py`,
+`models/schema.py`) and as a `--remote_engines` client of a port server
+(`serve.py`)."""
 
 import gzip
 import os
@@ -47,8 +50,7 @@ _DRIVER = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("jax_import", ["refused", "installed"])
-def test_call_runs_without_jax(tmp_path, jax_import):
+def _verify_case(tmp_path):
     ref = random_reference(3000, seed=42)
     variants = [
         SimVariant(600, ref[600], "C" if ref[600] != "C" else "G", (1, 1)),
@@ -56,17 +58,18 @@ def test_call_runs_without_jax(tmp_path, jax_import):
         SimVariant(1800, ref[1800], ref[1800] + "ACG", (0, 1)),
         SimVariant(2400, ref[2400:2404], ref[2400], (1, 1)),
     ]
-    fasta, bam, _, _ = write_test_case(str(tmp_path), ref_length=3000,
-                                       variants=variants, coverage=25,
-                                       read_length=700, seed=42, error_rate=0.02)
+    return write_test_case(str(tmp_path), ref_length=3000, variants=variants, coverage=25,
+                           read_length=700, seed=42, error_rate=0.02)[:2]
+
+
+def _port_call(tmp_path, jax_import, fasta, bam, *args):
+    """The port's `call` in a subprocess: it succeeds, loads none of the
+    refused packages and writes its VCFs."""
     out = tmp_path / "out"
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _DRIVER, jax_import, "call", "--bam_fn", bam, "--ref_fn", fasta,
-         "--output", str(out), "--platform", "hifi", "--threads", "1",
-         "--pileup_model", trained_fixture_path("pileup_hifi.npz"),
-         "--full_alignment_model", trained_fixture_path("fa_hifi.npz"),
-         "--device", "cpu"],
+         "--output", str(out), "--platform", "hifi", "--threads", "1", *args],
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED_LOADED=[]" in proc.stdout, proc.stdout
@@ -74,3 +77,45 @@ def test_call_runs_without_jax(tmp_path, jax_import):
         rows = [line for line in fh if not line.startswith("#")]
     assert len(rows) >= 4, rows
     assert os.path.getsize(out / "full_alignment.vcf.gz") > 0
+
+
+PILEUP_NPZ = trained_fixture_path("pileup_hifi.npz")
+FA_NPZ = trained_fixture_path("fa_hifi.npz")
+
+
+@pytest.mark.parametrize("jax_import", ["refused", "installed"])
+def test_call_runs_without_jax(tmp_path, jax_import):
+    fasta, bam = _verify_case(tmp_path)
+    _port_call(tmp_path, jax_import, fasta, bam, "--pileup_model", PILEUP_NPZ,
+               "--full_alignment_model", FA_NPZ, "--device", "cpu")
+
+
+def test_pt_call_runs_without_jax(tmp_path):
+    from chip_smoke import write_reference_checkpoints
+
+    fasta, bam = _verify_case(tmp_path)
+    models = tmp_path / "models"
+    models.mkdir()
+    write_reference_checkpoints(PILEUP_NPZ, FA_NPZ, str(models))
+    _port_call(tmp_path, "refused", fasta, bam, "--model_path", str(models), "--device", "cpu")
+
+
+def test_remote_engines_call_runs_without_jax(tmp_path):
+    """The client process loads no net and names no device; the port's
+    engines answer from this process."""
+    import torch
+
+    from clair3_tpu_torch.cli import _load_engine
+    from clair3_tpu_torch.serve import EngineServer
+
+    fasta, bam = _verify_case(tmp_path)
+    cpu = torch.device("cpu")
+    server = EngineServer({
+        "pileup": _load_engine(PILEUP_NPZ, "pileup", cpu, torch.float32),
+        "full_alignment": _load_engine(FA_NPZ, "full_alignment", cpu, torch.float32)},
+        platform="hifi")
+    server.serve_background()
+    try:
+        _port_call(tmp_path, "refused", fasta, bam, "--remote_engines", server.address)
+    finally:
+        server.shutdown()
