@@ -8,7 +8,9 @@ The port runs the same two-stage calling cascade on an NVIDIA GPU:
   2. full-alignment network (ResNet over [depth, 33, 8|9] per-read tensors)
 
 The nets, the engine that feeds them, the kernels and the CLI are the
-port's own.  Feature extraction, decode, routing, phasing, merge, the I/O
+port's own, and so is training (``train/``: the focal loss, the AdamW step
+and the trainer; the nets' plain modules run under autograd, since no
+kernel has a backward).  Feature extraction, decode, routing, phasing, merge, the I/O
 codecs and the native (C++) host library are copies of the framework-free
 modules of ``clair3_tpu`` under the same relative paths, held equal to
 their originals by ``tests/test_torch_copies.py``.  This package imports

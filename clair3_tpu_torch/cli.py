@@ -1,15 +1,17 @@
 """Command-line interface of the port: ``python -m clair3_tpu_torch
-{call,serve}``.
+{call,serve,tensor2bin,train}``.
 
 The argument surface of ``call`` is ``clair3_tpu.cli._add_call_args`` plus
 ``--device`` (the counterpart of ``JAX_PLATFORMS``).  That function, the
 input validation, the model-file resolution, the dwell-channel
-reconciliation and ``cmd_serve`` are copies of the JAX CLI's framework-free
-code (held equal to it by ``tests/test_torch_copies.py``).  ``cmd_call``
-checks model-zoo names and probes the BAM for move tables in the JAX CLI's
-order, before any engine loads.  Both nets load from ``.npz`` or from the
-reference's ``.pt`` state dicts (``models/convert.py``).  ``--device cuda``
-(the default) raises when no GPU is present: there is no silent CPU path.
+reconciliation, ``cmd_serve``, ``cmd_tensor2bin`` and the ``tensor2bin``
+and ``train`` parsers are copies of the JAX CLI's framework-free code (held
+equal to it by ``tests/test_torch_copies.py``; ``train`` adds ``--device``).
+``cmd_call`` checks model-zoo names and probes the BAM for move tables in
+the JAX CLI's order, before any engine loads.  Both nets load from ``.npz``
+or from the reference's ``.pt`` state dicts (``models/convert.py``).
+``--device cuda`` (the default of ``call``, ``serve`` and ``train``) raises
+when no GPU is present: there is no silent CPU path.
 
     # a directory with pileup.{npz,pt} and full_alignment.{npz,pt}; ONT with
     # the dwell channel read from the BAM's mv tags
@@ -20,10 +22,16 @@ reference's ``.pt`` state dicts (``models/convert.py``).  ``--device cuda``
     python -m clair3_tpu_torch call ... --remote_engines http://gpu-host:8618
     # a torch.profiler Chrome trace of the run
     python -m clair3_tpu_torch call ... --profile_dir trace/
+    # a labelled bin from a BAM and a truth VCF, then a net trained on it;
+    # the checkpoints are the JAX package's .npz trees
+    python -m clair3_tpu_torch tensor2bin --bam_fn in.bam --ref_fn ref.fa \
+        --truth_vcf_fn truth.vcf --bin_fn p.bin --pileup --platform hifi
+    python -m clair3_tpu_torch train --bin_fn p.bin --output_dir m --pileup
 
 Intermediate phasing runs in-process unless
 ``--use_{whatshap,longphase}_for_intermediate_phasing`` hands it to that
-binary.  Not yet ported (exit 1 with a message): ``--dist_*``.
+binary.  Not yet ported (exit 1 with a message): ``call --dist_*`` and
+``train --data_parallel`` (multi-process calling and training).
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from clair3_tpu_torch.device import resolve_device
 
 _DTYPES = {"fp32": torch.float32, "f32": torch.float32, "float32": torch.float32,
            "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
@@ -222,14 +232,6 @@ def _validate_call_inputs(args) -> Optional[str]:
     return None
 
 
-def resolve_device(name: str) -> torch.device:
-    """The ``--device`` choice; ``cuda`` without a visible GPU raises."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is visible to "
-                           "torch (use --device cpu to call on the CPU)")
-    return torch.device(name)
-
-
 def resolve_compute_dtype(choice: str, device: torch.device) -> torch.dtype:
     """bf16 on a GPU, f32 on the CPU; ``--compute_dtype`` or, when the flag
     is ``auto``, ``CLAIR3T_COMPUTE_DTYPE`` overrides."""
@@ -310,8 +312,11 @@ def _load_engine(path: str, kind: str, device: torch.device,
 
 
 def _not_yet_ported(args) -> Optional[str]:
-    if (args.dist_coordinator is not None or args.dist_num_processes
-            or args.dist_process_id is not None):
+    if getattr(args, "data_parallel", False):
+        return "--data_parallel (multi-process training)"
+    if (getattr(args, "dist_coordinator", None) is not None
+            or getattr(args, "dist_num_processes", None)
+            or getattr(args, "dist_process_id", None) is not None):
         return "--dist_* (multi-process calling)"
     return None
 
@@ -499,6 +504,109 @@ def cmd_call(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_tensor2bin(args: argparse.Namespace) -> int:
+    """Create a labeled HDF5 training bin from a BAM + truth VCF
+    (reference workflow: CreateTrainingTensorDirect + Tensor2Bin)."""
+    from clair3_tpu_torch.io.fasta import FastaFile
+    from clair3_tpu_torch.pileup.extractor import create_pileup_tensors
+    from clair3_tpu_torch.train.data import build_labels, truth_variants_from_vcf, write_bin
+
+    fa = FastaFile(args.ref_fn)
+    ctg = args.ctg_name or fa.references[0]
+    end = args.ctg_end or fa.contig_length(ctg)
+    fa.close()
+
+    if args.pileup:
+        tensors, pos_infos, alt_infos, _ = create_pileup_tensors(
+            args.bam_fn, args.ref_fn, ctg, args.ctg_start, end,
+            min_snp_af=args.snp_min_af, min_indel_af=args.indel_min_af)
+    else:
+        from clair3_tpu_torch.config import PLATFORMS
+        from clair3_tpu_torch.train.data import TruthVariant  # noqa: F401
+        from clair3_tpu_torch.fullalign.extractor import create_fa_tensors
+        from clair3_tpu_torch.pileup.extractor import create_pileup_tensors as _cpt
+
+        _, pos_infos_p, _, _ = _cpt(
+            args.bam_fn, args.ref_fn, ctg, args.ctg_start, end,
+            min_snp_af=args.snp_min_af, min_indel_af=args.indel_min_af)
+        positions = [int(p.split(":")[-2]) for p in pos_infos_p]
+        tensors, pos_infos, alt_infos = create_fa_tensors(
+            args.bam_fn, args.ref_fn, ctg, positions,
+            matrix_depth=PLATFORMS[args.platform].matrix_depth,
+            no_phasing=True, enable_dwell=args.enable_dwell_time)
+
+    truths = truth_variants_from_vcf(args.truth_vcf_fn, ctg)
+    if args.unify_repr:
+        from clair3_tpu_torch.io.fasta import FastaFile as _FF
+        from clair3_tpu_torch.train.unify import CandidateAllele, unify_representation
+
+        cands = []
+        for pos_info, alt_info in zip(pos_infos, alt_infos):
+            pos1 = int(pos_info.split(":")[-2])
+            ref_base = pos_info.split(":")[-1]
+            ref_base = ref_base[len(ref_base) // 2] if len(ref_base) > 1 else ref_base
+            for token in str(alt_info).split("-", 1)[-1].split(" "):
+                if not token or token[0] not in "XID" or not token[1:]:
+                    continue
+                if token[0] == "X":
+                    cands.append(CandidateAllele(pos1, ref_base, token[1]))
+                elif token[0] == "I":
+                    cands.append(CandidateAllele(pos1, ref_base, token[1:]))
+                else:  # D<deleted>
+                    cands.append(CandidateAllele(pos1, ref_base + token[1:], ref_base))
+        _fa = _FF(args.ref_fn)
+        ref_seq = _fa.fetch(ctg, 0, _fa.contig_length(ctg))
+        _fa.close()
+        # read-level support gates relabeling (find_read_support semantics)
+        from clair3_tpu_torch.io.bam import BamReader as _BR
+
+        _bam = _BR(args.bam_fn)
+        _reads = list(_bam.fetch(ctg, max(0, args.ctg_start - 1), end))
+        truths = unify_representation(truths, cands, ref_seq, 0, reads=_reads)
+    labels, keep = build_labels(
+        pos_infos, truths, maximum_non_variant_ratio=args.maximum_non_variant_ratio)
+    write_bin(args.bin_fn, tensors[keep], labels[keep],
+              [p for p, k in zip(pos_infos, keep) if k],
+              [a for a, k in zip(alt_infos, keep) if k])
+    print(f"[INFO] wrote {int(keep.sum())} samples to {args.bin_fn}")
+    return 0
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    """Train a net from HDF5 bins on ``--device``; the counterpart of
+    ``clair3_tpu.cli.cmd_train`` without a mesh."""
+    from clair3_tpu_torch.config import TrainConfig
+    from clair3_tpu_torch.train.trainer import train_model
+
+    missing = _not_yet_ported(args)
+    if missing:
+        print(f"[ERROR] not yet ported to clair3_tpu_torch: {missing}; use "
+              "`python -m clair3_tpu train`", file=sys.stderr)
+        return 1
+    device = resolve_device(args.device)
+    init_variables = None
+    if args.chkpnt_fn:
+        from clair3_tpu_torch.models.params_io import load_variables
+
+        init_variables = load_variables(args.chkpnt_fn)
+    cfg = TrainConfig(
+        pileup=args.pileup,
+        add_indel_length=args.add_indel_length,
+        platform=args.platform,
+        learning_rate=args.learning_rate,
+        batch_size=args.batch_size,
+        max_epoch=args.max_epoch,
+        mini_epochs=args.mini_epochs,
+        seed=args.seed,
+    )
+    result = train_model(args.bin_fn, args.output_dir, cfg,
+                         init_variables=init_variables,
+                         use_class_weights=args.use_class_weights, device=device)
+    print(f"[INFO] best_val_loss={result['best_val_loss']:.4f} "
+          f"model={result['model_path']}")
+    return 0
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     """Serve the production inference engines over HTTP (GPU host side of
     the remote-inference split; reference analogue: the Triton serving
@@ -571,6 +679,47 @@ def main(argv=None) -> int:
                         help="device of both nets; cuda raises when no GPU "
                              "is present")
     call_p.set_defaults(func=cmd_call)
+
+    t2b = sub.add_parser("tensor2bin", help="Create labeled HDF5 training bins")
+    t2b.add_argument("--bam_fn", required=True)
+    t2b.add_argument("--ref_fn", required=True)
+    t2b.add_argument("--truth_vcf_fn", required=True)
+    t2b.add_argument("--bin_fn", required=True)
+    t2b.add_argument("--platform", default="ont", choices=("ont", "hifi", "ilmn"))
+    t2b.add_argument("--ctg_name", default=None)
+    t2b.add_argument("--ctg_start", type=int, default=1)
+    t2b.add_argument("--ctg_end", type=int, default=None)
+    t2b.add_argument("--pileup", action="store_true")
+    t2b.add_argument("--enable_dwell_time", action="store_true")
+    t2b.add_argument("--snp_min_af", type=float, default=0.08)
+    t2b.add_argument("--indel_min_af", type=float, default=0.15)
+    t2b.add_argument("--maximum_non_variant_ratio", type=float, default=None)
+    t2b.add_argument("--unify_repr", action="store_true",
+                     help="re-express truth variants in the sample's own "
+                          "candidate representation space before labeling")
+    t2b.set_defaults(func=cmd_tensor2bin)
+
+    tr = sub.add_parser("train", help="Train a model from HDF5 bins")
+    tr.add_argument("--bin_fn", nargs="+", required=True)
+    tr.add_argument("--output_dir", required=True)
+    tr.add_argument("--platform", default="ont", choices=("ont", "hifi", "ilmn"))
+    tr.add_argument("--pileup", action="store_true")
+    tr.add_argument("--add_indel_length", action="store_true")
+    tr.add_argument("--learning_rate", type=float, default=1e-3)
+    tr.add_argument("--batch_size", type=int, default=2000)
+    tr.add_argument("--max_epoch", type=int, default=30)
+    tr.add_argument("--mini_epochs", type=int, default=1)
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--data_parallel", action="store_true",
+                    help="not yet ported (exits 1): multi-process training")
+    tr.add_argument("--chkpnt_fn", default=None,
+                    help="initial .npz checkpoint for fine-tuning/resume")
+    tr.add_argument("--use_class_weights", action="store_true",
+                    help="effective-number class-balanced focal loss weights")
+    tr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="device of the trained net; cuda raises when no GPU "
+                         "is present")
+    tr.set_defaults(func=cmd_train)
 
     srv = sub.add_parser(
         "serve", help="serve the inference engines over HTTP (remote "

@@ -8,7 +8,10 @@ cells = 14 x 256 features, flattened in NHWC order), a Dense-256 trunk and
 four heads.  The convolutions run in torch's NCHW layout through
 ``torch.nn.functional.conv2d`` (the JAX package leaves them to XLA too);
 weights keep torch's ``[O, I, kh, kw]`` layout and BatchNorm keeps flax's
-four tensors, applied as an inference affine at eps 1e-3.
+four tensors, at eps 1e-3.  In training mode BatchNorm normalizes with the
+batch's statistics and updates its running ones as flax's does, and dropout
+follows the pyramid pool (0.2), L4 (0.5) and each L5 (0.2), with masks from
+the generator passed to ``forward``.
 
 With ``use_kernel_conv1`` (inference only, the counterpart of the JAX
 ``use_pallas_conv1``) the first ConvBNRelu runs through
@@ -20,17 +23,18 @@ tensor on the CPU.  One state_dict drives both routes.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from clair3_tpu_torch.config import FA_CHANNEL_SIZE, FA_NORMALIZE_NUM
-from clair3_tpu_torch.models.layers import HEAD_NAMES, HEAD_SIZES, Dense
+from clair3_tpu_torch.models.layers import HEAD_NAMES, HEAD_SIZES, Dense, Dropout
 from clair3_tpu_torch.ops.fa_conv1 import fa_conv1
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.9  # flax's convention: the share of the running value kept
 
 
 class Conv(nn.Module):
@@ -48,9 +52,15 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with flax's tensors: ``scale``, ``bias`` and the
-    running ``mean``/``var``; computed in float32 and cast back, as flax
-    does for a low-precision ``dtype``."""
+    """flax ``nn.BatchNorm(epsilon=1e-3, momentum=0.9)`` with flax's tensors:
+    ``scale``, ``bias`` and the running ``mean``/``var``; computed in float32
+    and cast back, as flax does for a low-precision ``dtype``.  In eval mode
+    it normalizes with the running statistics.  In training mode it
+    normalizes with the batch's mean and biased variance over N, H and W
+    (``max(0, E[x^2] - E[x]^2)``, flax's fast variance) and moves the
+    running statistics 10% of the way to them.  flax's momentum 0.9 is
+    torch's 0.1, and torch's own BatchNorm keeps the unbiased variance, so
+    ``nn.BatchNorm2d`` is not this layer."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -61,8 +71,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        mul = (torch.rsqrt(self.var.float() + BN_EPS) * self.scale.float()).view(shape)
-        y = (x.float() - self.mean.float().view(shape)) * mul
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean.float(), self.var.float()
+        mul = (torch.rsqrt(var + BN_EPS) * self.scale.float()).view(shape)
+        y = (xf - mean.view(shape)) * mul
         return (y + self.bias.float().view(shape)).to(x.dtype)
 
 
@@ -126,16 +145,20 @@ class FullAlignmentNet(nn.Module):
         self.res_block2 = ResBlock(128)
         self.conv5 = ConvBNRelu(128, 256, stride=2)
         self.res_block3 = ResBlock(256)
+        self.L3_dropout = Dropout(0.2)
         self.L4 = Dense(14 * 256, l4_units)
+        self.L4_dropout = Dropout(0.5)
         for i in range(self.n_heads):
             setattr(self, f"L5_{i + 1}", Dense(l4_units, l5_units))
+            setattr(self, f"L5_{i + 1}_dropout", Dropout(0.2))
             setattr(self, HEAD_NAMES[i], Dense(l5_units, HEAD_SIZES[i]))
 
     @property
     def input_channels(self) -> int:
         return self.conv1.conv.weight.shape[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.compute_dtype
         if self.use_kernel_conv1 and not self.training:
             conv, bn = self.conv1.conv, self.conv1.bn
@@ -148,11 +171,13 @@ class FullAlignmentNet(nn.Module):
         for stage in (self.res_block1, self.conv3, self.res_block2,
                       self.conv5, self.res_block3):
             x = stage(x)
-        x = F.selu(self.L4(pyramid_pool(x), dt))
+        x = self.L3_dropout(pyramid_pool(x), generator)
+        x = self.L4_dropout(F.selu(self.L4(x, dt)), generator)
         outs = []
         for i in range(self.n_heads):
             l5, out = getattr(self, f"L5_{i + 1}"), getattr(self, HEAD_NAMES[i])
-            logits = out(F.selu(l5(x, dt)), dt)
+            drop = getattr(self, f"L5_{i + 1}_dropout")
+            logits = out(drop(F.selu(l5(x, dt)), generator), dt)
             # SELU-before-softmax matches the trained reference checkpoints
             outs.append(torch.softmax(F.selu(logits.float()), dim=-1))
         return torch.cat(outs, dim=-1)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -28,3 +30,29 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return x.to(dtype) @ self.kernel.to(dtype) + self.bias.to(dtype)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode each value is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; in eval mode
+    the identity.  The mask is drawn from ``generator``, the counterpart of
+    flax's ``rngs={"dropout": ...}``: a net in training mode called without
+    one raises, so a net left in training mode at inference shows itself.
+    Holds no parameters."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training mode needs a torch.Generator; "
+                             "call .eval() on a net used for inference")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"

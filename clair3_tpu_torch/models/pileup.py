@@ -10,22 +10,28 @@ flax's ``param_dtype``/``dtype`` split does.  With ``use_kernel`` the whole
 net runs through ``ops.pileup_full.pileup_full``: the CUDA kernel for a
 tensor on the card, its plain twin for a tensor on the CPU; the operands are
 cast and packed once per (dtype, device) and kept until a parameter changes.
+The kernel has no backward, so a net in training mode takes the plain route
+under autograd, with dropout after LSTM2 (0.2), L4 (0.5) and each L5 (0.2)
+at the JAX net's places; its masks come from the generator passed to
+``forward``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from clair3_tpu_torch.config import NO_OF_POSITIONS, PILEUP_CHANNEL_SIZE
-from clair3_tpu_torch.models.layers import HEAD_NAMES, HEAD_SIZES, Dense
+from clair3_tpu_torch.models.layers import HEAD_NAMES, HEAD_SIZES, Dense, Dropout
 from clair3_tpu_torch.ops.lstm import BiLSTM
 from clair3_tpu_torch.ops.pileup_full import (PackedPileup, pack_pileup_operands,
                                               pileup_full_packed)
 
-# forwards that took the plain path on a CUDA tensor: a run that should have
-# gone through the kernel reads 0 here
+# eval-mode forwards that took the plain path on a CUDA tensor: a run that
+# should have gone through the kernel reads 0 here
 plain_cuda_forwards = 0
 
 
@@ -43,9 +49,12 @@ class PileupNet(nn.Module):
         self.n_heads = 4 if add_indel_length else 2
         self.LSTM1 = BiLSTM(input_channels, lstm1_units)
         self.LSTM2 = BiLSTM(2 * lstm1_units, lstm2_units)
+        self.L3_dropout = Dropout(0.2)
         self.L4 = Dense(NO_OF_POSITIONS * 2 * lstm2_units, l4_units)
+        self.L4_dropout = Dropout(0.5)
         for i in range(self.n_heads):
             setattr(self, f"L5_{i + 1}", Dense(l4_units, l5_units))
+            setattr(self, f"L5_{i + 1}_dropout", Dropout(0.2))
             setattr(self, HEAD_NAMES[i], Dense(l5_units, HEAD_SIZES[i]))
 
     def heads(self):
@@ -77,18 +86,21 @@ class PileupNet(nn.Module):
             self._packed = (key, pack_pileup_operands(trunk, heads, dtype, device))
         return self._packed[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         global plain_cuda_forwards
         dt = self.compute_dtype
-        if self.use_kernel:
+        if self.use_kernel and not self.training:
             return pileup_full_packed(x, self.packed_operands(dt, x.device))
-        if x.is_cuda:
+        if x.is_cuda and not self.training:
             plain_cuda_forwards += 1
-        x = self.LSTM2(self.LSTM1(x.to(dt)))
+        x = self.L3_dropout(self.LSTM2(self.LSTM1(x.to(dt))), generator)
         x = F.selu(self.L4(x.reshape(x.shape[0], -1), dt))
+        x = self.L4_dropout(x, generator)
         outs = []
-        for l5, out in self.heads():
-            logits = out(F.selu(l5(x, dt)), dt)
+        for i, (l5, out) in enumerate(self.heads()):
+            drop = getattr(self, f"L5_{i + 1}_dropout")
+            logits = out(drop(F.selu(l5(x, dt)), generator), dt)
             # SELU-before-softmax is baked into the trained checkpoints
             outs.append(torch.softmax(F.selu(logits.float()), dim=-1))
         return torch.cat(outs, dim=-1)

@@ -1,8 +1,8 @@
 """Seeded inputs and weights for the port's tests and its chip check, and
 the synthetic calling cases of the JAX package.
 
-``random_variables``, ``random_counts`` and ``bf16_ulps`` are the port's
-own.  The read simulator (``SimVariant`` .. ``write_test_case``), the two
+``random_variables``, ``random_counts``, ``bf16_ulps`` and
+``ArrayDataset`` are the port's own.  The read simulator (``SimVariant`` .. ``write_test_case``), the two
 numpy oracle engines behind ``--use_oracle_engines``,
 ``trained_fixture_path`` and the VCF-row parity check
 ``vcf_rows_numerically_equivalent`` are copied from
@@ -25,6 +25,7 @@ from clair3_tpu_torch.io.bam import BamRead, write_bam
 from clair3_tpu_torch.io.fasta import write_fasta
 from clair3_tpu_torch.models.bridge import to_jax_variables
 from clair3_tpu_torch.models.params_io import flatten_tree, unflatten_tree
+from clair3_tpu_torch.train.data import BinDataset
 
 
 def random_variables(net: nn.Module, seed: int) -> Dict:
@@ -60,6 +61,22 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     _, e = torch.frexp(want.abs())
     ulp = torch.clamp(torch.ldexp(torch.ones_like(want), e - 8), min=1e-5)
     return ((got - want).abs() / ulp).max().item()
+
+
+class ArrayDataset(BinDataset):
+    """``BinDataset`` over arrays held in memory, one per would-be bin: the
+    same chunks, offsets, batches and split, without writing HDF5 (for a
+    host without h5py)."""
+
+    def __init__(self, tensors: Sequence[np.ndarray], labels: Sequence[np.ndarray],
+                 chunk_size: int = 250):
+        self.paths = []
+        self.chunk_size = chunk_size
+        self._tensors, self._labels = list(tensors), list(labels)
+        self.chunks = []
+        for bin_idx, t in enumerate(self._tensors):
+            n_chunks = len(t) // chunk_size or (1 if len(t) else 0)
+            self.chunks.extend((bin_idx, c) for c in range(n_chunks))
 
 
 BASES = "ACGT"

@@ -33,6 +33,7 @@ def test_fixture_state_dict_loads_strictly(name):
         net = FullAlignmentNet(
             input_channels=params["conv1"]["conv"]["kernel"].shape[2])
     net.load_state_dict(from_jax_variables(variables), strict=True)
+    net.eval()
     # the conv layout change: JAX [kh, kw, I, O] -> torch [O, I, kh, kw]
     if name.startswith("fa"):
         k = params["conv1"]["conv"]["kernel"]

@@ -11,6 +11,7 @@ import re
 import shutil
 import socket
 
+import numpy as np
 import pytest
 import torch
 from test_external_phaser import LONGPHASE_STUB, WHATSHAP_STUB, _write_stub
@@ -255,3 +256,97 @@ def test_cascade_with_external_phaser(tmp_path, het_case, tool, stub):
     phased = "phased_chr1.vcf.gz" if tool == "whatshap" else "phased_chr1.vcf"
     assert os.path.exists(out_dir / "phase_vcf" / "chr1.vcf")
     assert os.path.exists(out_dir / "phase_vcf" / phased)
+
+
+@pytest.fixture(scope="module")
+def verify_case(tmp_path_factory):
+    """The 3 kb case of the verify recipe, with its truth as a VCF."""
+    from clair3_tpu_torch.io.vcf import VcfRecord, VcfWriter, get_header
+    from clair3_tpu_torch.testing import write_test_case
+
+    d = tmp_path_factory.mktemp("verify")
+    ref = random_reference(3000, seed=42)
+    variants = [
+        SimVariant(600, ref[600], "C" if ref[600] != "C" else "G", (1, 1)),
+        SimVariant(1200, ref[1200], "T" if ref[1200] != "T" else "A", (0, 1)),
+        SimVariant(1800, ref[1800], ref[1800] + "ACG", (0, 1)),
+        SimVariant(2400, ref[2400:2404], ref[2400], (1, 1)),
+    ]
+    fasta, bam, _, _ = write_test_case(str(d), ref_length=3000, variants=variants, coverage=25,
+                                       read_length=700, seed=42, error_rate=0.02)
+    truth = str(d / "truth.vcf")
+    with VcfWriter(truth, get_header(contigs=[("chr1", 3000)])) as w:
+        for v in variants:
+            w.write(VcfRecord("chr1", v.pos + 1, v.ref, v.alt, 60, "PASS", ".", "GT",
+                              "1/1" if v.genotype == (1, 1) else "0/1"))
+    return fasta, bam, truth
+
+
+def _read_bin_datasets(path):
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: f[k][:] for k in f.keys()}
+
+
+@pytest.mark.parametrize("pileup", [True, False], ids=["pileup", "fa"])
+@pytest.mark.parametrize("unify", [False, True], ids=["", "unify_repr"])
+def test_tensor2bin_matches_the_jax_cli(tmp_path, verify_case, pileup, unify):
+    """`tensor2bin` of the port and of the JAX package write the same four
+    datasets (tensors, labels, positions, alt info)."""
+    from clair3_tpu.cli import main as jax_main
+
+    fasta, bam, truth = verify_case
+    args = ["tensor2bin", "--bam_fn", bam, "--ref_fn", fasta, "--truth_vcf_fn", truth,
+            "--platform", "hifi", "--indel_min_af", "0.12"]
+    args += ["--pileup"] if pileup else []
+    args += ["--unify_repr"] if unify else []
+    assert jax_main(args + ["--bin_fn", str(tmp_path / "jax.bin")]) == 0
+    assert main(args + ["--bin_fn", str(tmp_path / "port.bin")]) == 0
+    want = _read_bin_datasets(tmp_path / "jax.bin")
+    got = _read_bin_datasets(tmp_path / "port.bin")
+    assert sorted(got) == sorted(want) == ["alt_info", "label", "position", "position_matrix"]
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert want["label"].sum(axis=0)[:21].max() > 0 and len(want["position"]) > 4
+
+
+def test_train_then_call_on_the_cpu(tmp_path, verify_case, capsys):
+    """`train --device cpu` writes the JAX-format checkpoints, and `call`
+    loads the trained nets and writes rows (reference calls included: one
+    epoch of a handful of rows calls no variant)."""
+    fasta, bam, truth = verify_case
+    common = ["--bam_fn", bam, "--ref_fn", fasta, "--truth_vcf_fn", truth, "--platform", "hifi"]
+    models = {}
+    for kind, extra in (("pileup", ["--pileup"]), ("fa", [])):
+        bin_fn = str(tmp_path / f"{kind}.bin")
+        assert main(["tensor2bin", *common, "--bin_fn", bin_fn, *extra]) == 0
+        out = tmp_path / f"{kind}_model"
+        assert main(["train", "--bin_fn", bin_fn, "--output_dir", str(out), "--platform", "hifi",
+                     "--max_epoch", "1", "--device", "cpu",
+                     *(["--pileup"] if kind == "pileup" else ["--add_indel_length"])]) == 0
+        assert sorted(os.listdir(out)) == ["best_val_loss.npz", "epoch_0_0.npz"]
+        models[kind] = str(out / "best_val_loss.npz")
+    assert "best_val_loss=" in capsys.readouterr().out
+    assert _call(tmp_path, bam, fasta, "--platform", "hifi", "--threads", "1",
+                 "--pileup_model", models["pileup"],
+                 "--full_alignment_model", models["fa"], "--print_ref_calls") == 0
+    rows = list(VcfReader(str(tmp_path / "out" / "merge_output.vcf.gz")))
+    assert rows
+
+
+def test_train_data_parallel_exits_1(tmp_path, capsys):
+    argv = ["train", "--bin_fn", str(tmp_path / "missing.bin"), "--output_dir",
+            str(tmp_path / "out"), "--data_parallel", "--device", "cpu"]
+    assert main(argv) == 1
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "multi-process training" in err
+
+
+def test_train_without_a_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "--bin_fn", str(tmp_path / "missing.bin"), "--output_dir",
+              str(tmp_path / "out")])

@@ -31,6 +31,7 @@ VERBATIM = [
     "pipeline/merge_sort.py", "pipeline/select.py",
     "phase/__init__.py", "phase/external.py", "phase/final_phasing.py", "phase/phaser.py",
     "realign/__init__.py", "realign/align.py", "realign/dbg.py", "realign/realigner.py",
+    "train/data.py", "train/unify.py",
     "native/common.h", "native/inflate.h",
     "native/clair3t_align.cc", "native/clair3t_arith.cc", "native/clair3t_bzip2.cc",
     "native/clair3t_cram.cc", "native/clair3t_dbg.cc", "native/clair3t_decode.cc",
@@ -121,8 +122,8 @@ EDITED = {
          '                 device: str = "cuda") -> EngineServer:\n'
          '    """Load `cli call`\'s production engines on ``device`` and wrap them in\n'
          '    a server; ``cuda`` raises when no GPU is visible."""\n'
-         "    from clair3_tpu_torch.cli import (_load_engine, resolve_compute_dtype, resolve_device,\n"
-         "                                      resolve_model_file)\n\n"
+         "    from clair3_tpu_torch.cli import _load_engine, resolve_compute_dtype, resolve_model_file\n"
+         "    from clair3_tpu_torch.device import resolve_device\n\n"
          "    dev = resolve_device(device)\n"
          "    dt = resolve_compute_dtype(compute_dtype, dev)\n"),
         ("        engines[kind] = _load_engine(path, kind, platform,\n"
@@ -136,7 +137,7 @@ DEFINITIONS = {
     # the help text describes the port's backend, not the TPU's
     "cli.py": ("clair3_tpu/cli.py", ["_add_call_args", "_reconcile_dwell",
                                      "resolve_model_file", "_validate_call_inputs",
-                                     "cmd_serve"], {
+                                     "cmd_serve", "cmd_tensor2bin"], {
         "_add_call_args": [
             ('"server (e.g. http://tpu-host:8618); no local "\n'
              '                        "models needed")',
@@ -160,6 +161,8 @@ DEFINITIONS = {
             ("fa_model=args.full_alignment_model)",
              "fa_model=args.full_alignment_model,\n        device=args.device)"),
         ]}),
+    # the class weights are numpy; the losses are the port's own
+    "train/loss.py": ("clair3_tpu/train/loss.py", ["effective_class_weights"], {}),
     # convert.py's main writes .npz through the JAX package's save_variables
     "models/params_io.py": ("clair3_tpu/models/params_io.py", ["save_variables"], {}),
     "testing.py": ("clair3_tpu/testing.py", [
@@ -244,6 +247,38 @@ def test_copied_definitions_equal_originals(key):
         assert name not in have, f"{rel} carries {name}, which needs jax"
 
 
+# the `tensor2bin` and `train` parsers of the JAX CLI's main(), as blocks of
+# the port's main(); `train` says --data_parallel is not ported and adds --device
+PARSER_BLOCKS = {
+    "tensor2bin": ('    t2b = sub.add_parser("tensor2bin"', '    t2b.set_defaults(func=cmd_tensor2bin)\n',
+                   []),
+    "train": ('    tr = sub.add_parser("train"', '    tr.set_defaults(func=cmd_train)\n', [
+        ('                    help="shard batches over all devices via a Mesh")\n',
+         '                    help="not yet ported (exits 1): multi-process training")\n'),
+        ('    tr.set_defaults(func=cmd_train)\n',
+         '    tr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),\n'
+         '                    help="device of the trained net; cuda raises when no GPU "\n'
+         '                         "is present")\n'
+         '    tr.set_defaults(func=cmd_train)\n'),
+    ]),
+}
+
+
+def _block(text, start, end):
+    i = text.index(start)
+    return text[i: text.index(end, i) + len(end)]
+
+
+@pytest.mark.parametrize("name", sorted(PARSER_BLOCKS))
+def test_parser_blocks_equal_originals(name):
+    start, end, edits = PARSER_BLOCKS[name]
+    want = _block(_sub(_read(os.path.join(JAX, "cli.py"))), start, end)
+    for old, new in edits:
+        assert old in want, f"{name}: the named edit no longer applies: {old[:80]!r}"
+        want = want.replace(old, new)
+    assert _block(_read(os.path.join(PORT, "cli.py")), start, end) == want
+
+
 def test_every_copy_is_listed():
     """Every file of the port that shares a relative path with the JAX
     package is checked above."""
@@ -258,5 +293,6 @@ def test_every_copy_is_listed():
     # the port's own modules that share a name with the JAX package's
     own = {"__init__.py", "__main__.py", "models/__init__.py", "models/full_alignment.py",
            "models/pileup.py", "ops/__init__.py", "ops/lstm.py",
-           "pipeline/__init__.py", "pipeline/engine.py"}
+           "pipeline/__init__.py", "pipeline/engine.py",
+           "train/__init__.py", "train/step.py", "train/trainer.py"}
     assert shared - own == listed, sorted((shared - own) ^ listed)

@@ -73,3 +73,41 @@ def test_rescale_matches_jax_engine():
     infos = ["500-X", "100-Y", "217-Z"]
     np.testing.assert_array_equal(rescale_high_coverage_pileup(x.copy(), infos),
                                   jax_rescale(x.copy(), infos))
+
+
+def _loaded_by(source, kind):
+    """The net each production loader hands its caller, on the CPU."""
+    from clair3_tpu_torch.cli import load_model
+    from clair3_tpu_torch.serve import build_server
+    from clair3_tpu_torch.testing import trained_fixture_path
+
+    path = trained_fixture_path("pileup_hifi.npz" if kind == "pileup" else "fa_hifi.npz")
+    cpu = torch.device("cpu")
+    if source == "load_model":
+        return load_model(path, kind, cpu, torch.float32)
+    if source == "engine":
+        net = FullAlignmentNet(input_channels=8) if kind == "fa" else PileupNet()
+        return InferenceEngine(_net(net, seed=3).train(), cpu).model
+    server = build_server(None, platform="hifi", port=0, device="cpu",
+                          pileup_model=trained_fixture_path("pileup_hifi.npz"),
+                          fa_model=trained_fixture_path("fa_hifi.npz"))
+    server.serve_background()  # shutdown() stops a serving loop
+    try:
+        return server.engines["pileup" if kind == "pileup" else "full_alignment"].model
+    finally:
+        server.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["pileup", "fa"])
+@pytest.mark.parametrize("source", ["load_model", "engine", "build_server"])
+def test_loaded_nets_are_in_eval_mode(source, kind):
+    """A net from load_model, InferenceEngine or serve.build_server is in
+    eval mode (BatchNorm on its running statistics, no dropout), so two
+    calls on one batch agree exactly."""
+    net = _loaded_by(source, kind)
+    assert not any(m.training for m in net.modules())
+    shape = (4, 33, 18) if kind == "pileup" else (4, 55, 33, 8)
+    x = torch.from_numpy(random_counts(6, shape, -50, 50).astype(
+        np.int32 if kind == "pileup" else np.int8))
+    with torch.inference_mode():
+        assert torch.equal(net(x), net(x))

@@ -26,7 +26,7 @@ def test_net_matches_jax_f32(name, depth, channels):
     net = FullAlignmentNet(input_channels=channels)
     net.load_state_dict(from_jax_variables(v), strict=True)
     with torch.inference_mode():
-        got = net(torch.from_numpy(x)).numpy()
+        got = net.eval()(torch.from_numpy(x)).numpy()
     err = np.abs(got - want).max()
     print(f"[port-fa] {name}: max |dp| {err:.3g}")
     assert got.shape == want.shape == (3, 90)

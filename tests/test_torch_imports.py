@@ -53,7 +53,9 @@ def test_file_does_not_use_the_jax_package(rel):
 def test_every_port_module_is_checked():
     files = set(_port_files())
     for rel in ("serve.py", "models/convert.py", "models/schema.py", "models/params_io.py",
-                "cli.py"):
+                "cli.py", "device.py", "models/init.py", "full_cascade_demo.py", "train/__init__.py",
+                "train/data.py", "train/unify.py", "train/loss.py", "train/step.py",
+                "train/trainer.py"):
         assert os.path.join("clair3_tpu_torch", rel) in files, rel
 
 

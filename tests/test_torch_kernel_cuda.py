@@ -48,7 +48,7 @@ def _net(which, device):
                           torch.float32)
     net = PileupNet(add_indel_length=True)
     net.load_state_dict(from_jax_variables(random_variables(net, seed=5)))
-    return net.to(device)
+    return net.to(device).eval()
 
 
 @pytest.mark.parametrize("batch", [1, 31, 32, 33, 256, 1000, 4096])

@@ -3,7 +3,9 @@
 case of the verify recipe with the committed hifi nets, once where the
 import system refuses those packages (a host without them) and once where
 they are importable (a GPU host may have jax installed; the port must
-still not load it).  The refusal matches the top-level name exactly, so
+still not load it).  With them refused, `train --device cpu` trains a net
+from a bin, and `python -m clair3_tpu_torch.full_cascade_demo` runs end to
+end at a tiny scale.  The refusal matches the top-level name exactly, so
 `clair3_tpu_torch` itself loads.  With them refused, the same call also
 runs from the reference's `.pt` files (`models/convert.py`,
 `models/schema.py`) and as a `--remote_engines` client of a port server
@@ -37,9 +39,11 @@ _DRIVER = textwrap.dedent("""
 
     if sys.argv[1] == "refused":
         sys.meta_path.insert(0, Refuse())
-    sys.argv = ["clair3_tpu_torch"] + sys.argv[2:]
+    module, args = ((sys.argv[3], sys.argv[4:]) if sys.argv[2] == "-m"
+                    else ("clair3_tpu_torch", sys.argv[2:]))
+    sys.argv = [module] + args
     try:
-        runpy.run_module("clair3_tpu_torch", run_name="__main__")
+        runpy.run_module(module, run_name="__main__")
         rc = 0
     except SystemExit as exc:
         rc = exc.code or 0
@@ -119,3 +123,43 @@ def test_remote_engines_call_runs_without_jax(tmp_path):
         _port_call(tmp_path, "refused", fasta, bam, "--remote_engines", server.address)
     finally:
         server.shutdown()
+
+
+def _refused_run(tmp_path, *argv, env=None):
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRIVER, "refused", *argv], cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=REPO, **(env or {})), capture_output=True, text=True,
+        timeout=300)
+    assert "BLOCKED_LOADED=[]" in proc.stdout, proc.stdout
+    return proc
+
+
+def test_train_runs_without_jax(tmp_path):
+    import numpy as np
+
+    from clair3_tpu_torch.config import LABEL_SIZE
+    from clair3_tpu_torch.testing import random_counts
+    from clair3_tpu_torch.train.data import write_bin
+
+    n = 60
+    labels = np.zeros((n, LABEL_SIZE), np.float32)
+    labels[np.arange(n), np.arange(n) % 21] = 1.0
+    labels[np.arange(n), 21 + np.arange(n) % 3] = 1.0
+    write_bin(str(tmp_path / "p.bin"), random_counts(1, (n, 33, 18)), labels,
+              [f"chr1:{i + 1}:A" for i in range(n)], ["" for _ in range(n)])
+    proc = _refused_run(tmp_path, "train", "--bin_fn", str(tmp_path / "p.bin"), "--output_dir",
+                        str(tmp_path / "m"), "--pileup", "--max_epoch", "1", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert os.path.exists(tmp_path / "m" / "best_val_loss.npz")
+
+
+def test_full_cascade_demo_runs_without_jax(tmp_path):
+    """The demo at a tiny scale (8 kb, 1 step a net): it trains, calls and
+    scores; its accuracy gates are for the default scale, so it exits 1."""
+    env = {"C3T_DEMO_L": "8000", "C3T_DEMO_TRAIN_END": "6000", "C3T_DEMO_STEPS_P": "1",
+           "C3T_DEMO_STEPS_F": "1", "C3T_DEMO_BATCH_P": "100", "C3T_DEMO_BATCH_F": "100"}
+    proc = _refused_run(tmp_path, "-m", "clair3_tpu_torch.full_cascade_demo",
+                        str(tmp_path / "demo"), "hifi", "--device", "cpu", env=env)
+    assert proc.returncode in (0, 1), proc.stderr[-3000:]
+    assert "F1-score" in proc.stdout and "[full] total" in proc.stdout, proc.stdout[-3000:]
+    assert os.path.exists(tmp_path / "demo" / "pileup_model" / "best_val_loss.npz")

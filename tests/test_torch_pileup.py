@@ -38,7 +38,7 @@ def _variables(which):
 def _port(variables, add_indel, **kw):
     net = PileupNet(add_indel_length=add_indel, **kw)
     net.load_state_dict(from_jax_variables(variables), strict=True)
-    return net
+    return net.eval()
 
 
 def _pallas_args(v):
@@ -142,7 +142,7 @@ def test_kernel_launch_refuses_a_cpu_tensor():
 
 
 def test_packed_operands_are_kept_and_rebuilt_after_load_state_dict():
-    net = PileupNet(add_indel_length=True, use_kernel=True)
+    net = PileupNet(add_indel_length=True, use_kernel=True).eval()
     net.load_state_dict(from_jax_variables(random_variables(net, seed=5)))
     first = net.packed_operands(torch.bfloat16, torch.device("cpu"))
     assert net.packed_operands(torch.bfloat16, torch.device("cpu")) is first
@@ -155,7 +155,7 @@ def test_packed_operands_are_kept_and_rebuilt_after_load_state_dict():
     assert again is not other
     assert not torch.equal(again.trunk[1], wh1_before)
     assert torch.equal(again.trunk[1], net.LSTM1.wh.detach())
-    fresh = PileupNet(add_indel_length=True, use_kernel=True)
+    fresh = PileupNet(add_indel_length=True, use_kernel=True).eval()
     fresh.load_state_dict(net.state_dict())
     x = torch.from_numpy(random_counts(2, (3, 33, 18)))
     with torch.inference_mode():
