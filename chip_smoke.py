@@ -141,7 +141,23 @@ Phase 7  trains both nets on the card: the port's full-cascade demo
          so one seed gives one F1.  The same call at f32 is printed beside
          it.
 
-With --phases (a comma-separated subset of 1-7) only those phases run (the
+Phase 8  multi-process calling, every call an OS process of its own: one
+         bf16 `call --gvcf` on the phase-3 region in four 30 kb chunks, then
+         the same call in two `--dist_*` processes (gloo on 127.0.0.1, a
+         free port) that share cuda:0, merged by the port's `sort_vcf` and
+         `sort_vcf --gvcf`, then one `run_clair3_tpu_torch.py` call with the
+         reference's spellings (--ctgName, --sampleName, --threads_num,
+         --fast_mode False, --device).  Checks: the merged VCF and gVCF rows
+         and the run_clair3_tpu_torch.py rows against the single process's,
+         flip budget 0 (byte identity printed); every child's `[kernels]`
+         line shows L1, L2 and L3 launched once per pileup call and the SIMT
+         kernel never; no child loaded jax, flax, optax or clair3_tpu; every
+         process wrote rows; `validate_gvcf` passes on the merged gVCF.
+         Prints each process's wall (spawn to exit, host clock), the pair's
+         wall, each process's gather (barrier and all_gather ms) and the
+         pair's summed launches.
+
+With --phases (a comma-separated subset of 1-8) only those phases run (the
 kernels are built in any case) and the script ends without the kernels'
 record and the ok line.  Otherwise the line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
@@ -154,6 +170,7 @@ import json
 import logging
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -181,7 +198,7 @@ EVAL_SEED = 91
 GATE_SNP_F1 = 0.990
 GATE_INDEL_F1 = 0.992
 DEVICE = "cuda"
-PHASES = (1, 2, 3, 4, 5, 6, 7)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
 CALL_ARGS = ["--platform", "hifi", "--indel_min_af", "0.12", "--threads", "4",
              "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
 # the ONT region and gates of tests/test_trained_fixture_cascade.py
@@ -1321,6 +1338,157 @@ def phase7_training(torch, work):
     return {"times": times, "results": results, "scores": scores}
 
 
+# a child process of phase 8: the port's CLI (``-m clair3_tpu_torch``) or a
+# script, then the names of the JAX package's modules it loaded (none may be)
+PHASE8_CHILD = """
+import runpy
+import sys
+
+target, args = sys.argv[1], sys.argv[2:]
+sys.argv = [target] + args
+try:
+    if target.endswith(".py"):
+        runpy.run_path(target, run_name="__main__")
+    else:
+        runpy.run_module(target, run_name="__main__")
+    rc = 0
+except SystemExit as exc:
+    rc = exc.code or 0
+blocked = ("jax", "jaxlib", "flax", "optax", "clair3_tpu")
+print(f"[child] loaded {sorted(m for m in sys.modules if m.split('.')[0] in blocked)}",
+      flush=True)
+sys.exit(rc)
+"""
+PHASE8_TIMEOUT_S = 600
+
+
+def spawn_child(work, tag, target, args):
+    """``target`` (a module or a script) with ``args`` in an OS process of
+    its own, its output to ``{work}/{tag}.log``; returns (process, log
+    path, start time)."""
+    log_path = os.path.join(work, f"{tag}.log")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", PHASE8_CHILD, target, *args],
+                                stdout=log, stderr=subprocess.STDOUT, env=env)
+    return proc, log_path, time.time()
+
+
+def wait_children(children):
+    """Each child's wall time (spawn to exit) once every one has exited 0,
+    with its log; a child still running at the time limit is killed, and so
+    is every other when one fails."""
+    walls, deadline = {}, time.time() + PHASE8_TIMEOUT_S
+    try:
+        while len(walls) < len(children):
+            for tag, (proc, _, t0) in children.items():
+                if tag not in walls and proc.poll() is not None:
+                    walls[tag] = time.time() - t0
+                    check(proc.returncode == 0, f"phase 8 {tag} exited {proc.returncode}:\n"
+                          + open(children[tag][1]).read()[-4000:])
+            check(time.time() < deadline, f"phase 8: {sorted(set(children) - set(walls))} "
+                  f"still running after {PHASE8_TIMEOUT_S} s")
+            time.sleep(0.05)
+    finally:
+        for proc, _, _ in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {tag: (walls[tag], open(children[tag][1]).read()) for tag in children}
+
+
+def child_report(tag, log):
+    """What a phase-8 child's log says: its pileup kernels' launches, its
+    gather's times, and that it loaded nothing of jax or clair3_tpu."""
+    kernels = [json.loads(line.split(" ", 1)[1]) for line in log.splitlines()
+               if line.startswith("[kernels] ")]
+    check(len(kernels) == 1, f"phase 8 {tag}: {len(kernels)} [kernels] lines")
+    k = kernels[0]
+    check(k["pileup_l1_tc"] > 0 and k["pileup_l1_tc"] == k["pileup_l2_tc"] == k["pileup_head"],
+          f"phase 8 {tag}: L1/L2/L3 launches {k}")
+    check(k["pileup_full"] == 0, f"phase 8 {tag}: the SIMT pileup kernel launched {k}")
+    check("[child] loaded []" in log, f"phase 8 {tag}: loaded jax or clair3_tpu")
+    gather = re.search(r"barrier ([0-9.]+) ms, all_gather ([0-9.]+) ms", log)
+    for line in log.splitlines():
+        if line.startswith(("[plan]", "[select]", "[gather]", "[timing]")):
+            print(f"[phase8] {tag} {line}")
+    return k, gather and (float(gather.group(1)), float(gather.group(2)))
+
+
+def phase8_multiprocess(torch, work, fasta, bam, smi):
+    """Multi-process calling on the card: one bf16 `call --gvcf` on the
+    phase-3 region, then two `--dist_*` processes sharing cuda:0, merged by
+    the port's `sort_vcf` and `sort_vcf --gvcf`, then one
+    run_clair3_tpu_torch.py call with the reference's spellings; every
+    child an OS process of its own."""
+    from clair3_tpu_torch import cli as port_cli
+    from clair3_tpu_torch.testing import trained_fixture_path
+
+    # four chunks, so that each process of the pair owns two
+    chunking = ["--chunk_size", str(EVAL_BP // 4)]
+    args = ["--bam_fn", bam, "--ref_fn", fasta, "--device", DEVICE, "--compute_dtype", "bf16",
+            "--gvcf", *chunking, *CALL_ARGS]
+    models = ["--pileup_model", trained_fixture_path("pileup_hifi.npz"),
+              "--full_alignment_model", trained_fixture_path("fa_hifi.npz")]
+    single, dist_dir = os.path.join(work, "p8_single"), os.path.join(work, "p8_dist")
+    ran = wait_children({"single": spawn_child(
+        work, "p8_single", "clair3_tpu_torch", ["call", *args, *models, "--output", single])})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    ran.update(wait_children({f"proc{i}": spawn_child(
+        work, f"p8_proc{i}", "clair3_tpu_torch",
+        ["call", *args, *models, "--output", dist_dir, "--dist_coordinator", f"127.0.0.1:{port}",
+         "--dist_num_processes", "2", "--dist_process_id", str(i)]) for i in range(2)}))
+    pair_wall = time.time() - t0
+    model_dir = os.path.join(work, "p8_models")
+    os.makedirs(model_dir)
+    os.symlink(trained_fixture_path("pileup_hifi.npz"), os.path.join(model_dir, "pileup.npz"))
+    os.symlink(trained_fixture_path("fa_hifi.npz"), os.path.join(model_dir, "full_alignment.npz"))
+    entry = os.path.join(os.path.dirname(os.path.abspath(__file__)), "run_clair3_tpu_torch.py")
+    ref_out = os.path.join(work, "p8_run_clair3")
+    ran.update(wait_children({"run_clair3_tpu_torch.py": spawn_child(
+        work, "p8_run_clair3", entry,
+        ["--bam_fn", bam, "--ref_fn", fasta, "--output", ref_out, "--model_path", model_dir,
+         "--ctgName", "chr1", "--sampleName", "SAMPLE", "--fast_mode", "False",
+         "--device", DEVICE, "--compute_dtype", "bf16", "--gvcf", *chunking,
+         *({"--threads": "--threads_num"}.get(a, a) for a in CALL_ARGS)])}))
+
+    launches, gathers = {}, {}
+    for tag, (wall, log) in ran.items():
+        launches[tag], gathers[tag] = child_report(tag, log)
+        print(f"[phase8] {tag}: wall {wall:.3f} s ({smi}); pileup launches {launches[tag]}")
+    print(f"[phase8] pair of processes: wall {pair_wall:.3f} s against the single process's "
+          f"{ran['single'][0]:.3f} s ({smi})")
+    for tag in ("proc0", "proc1"):
+        check(gathers[tag] is not None, f"phase 8 {tag}: no [gather] line")
+        print(f"[phase8] {tag} gather: barrier {gathers[tag][0]:.3f} ms, all_gather "
+              f"{gathers[tag][1]:.3f} ms ({smi})")
+
+    merged = os.path.join(work, "p8_merged")
+    os.makedirs(merged)
+    for name, extra in (("merge_output.vcf.gz", []), ("merge_output.gvcf.gz", ["--gvcf"])):
+        shards = [os.path.join(dist_dir, f"proc{i}", name) for i in range(2)]
+        check(all(_rows(s) for s in shards), f"phase 8: a process wrote no {name} rows")
+        check(port_cli.main(["sort_vcf", "--input_fn", *shards, "--output_fn",
+                             os.path.join(merged, name), "--ref_fn", fasta, *extra]) == 0,
+              f"sort_vcf {name}")
+        with gzip.open(os.path.join(merged, name), "rt") as a, \
+                gzip.open(os.path.join(single, name), "rt") as b:
+            print(f"[phase8] merged {name} byte-identical to the single process's: "
+                  f"{a.read() == b.read()}")
+        rows_equivalent("phase8", "merged vs single", single, merged, name)
+        rows_equivalent("phase8", "run_clair3_tpu_torch.py vs single", single, ref_out, name)
+    check(port_cli.main(["validate_gvcf", "--gvcf_fn",
+                         os.path.join(merged, "merge_output.gvcf.gz")]) == 0,
+          "validate_gvcf failed on the merged gVCF")
+    pair = {k: launches["proc0"][k] + launches["proc1"][k] for k in launches["proc0"]}
+    print(f"[phase8] pileup launches of the pair: {pair}")
+    return {"walls": {tag: wall for tag, (wall, _) in ran.items()}, "pair_wall": pair_wall,
+            "gathers": gathers, "launches": launches}
+
+
 def setup(work):
     """The simulated phase-3 region, its pileup tensors and the FA tensors
     of its first 1024 candidates."""
@@ -1396,7 +1564,7 @@ def main(argv=None) -> int:
 
     try:
         with tempfile.TemporaryDirectory() as work:
-            if phases & {2, 3, 4, 6}:
+            if phases & {2, 3, 4, 6, 8}:
                 fasta, bam, variants, real, real_fa = setup(work)
             if 2 in phases:
                 dev = torch.device(DEVICE)
@@ -1420,6 +1588,8 @@ def main(argv=None) -> int:
                                launches["bf16"] if 3 in phases else None)
             if 7 in phases:
                 phase7_training(torch, work)
+            if 8 in phases:
+                phase8_multiprocess(torch, work, fasta, bam, smi)
     finally:
         shutdown_decode_pool()
 

@@ -18,4 +18,4 @@ nothing of ``clair3_tpu``, and never jax, flax or optax: it runs where
 neither is installed.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.3.0"

@@ -1,12 +1,16 @@
 """Command-line interface of the port: ``python -m clair3_tpu_torch
-{call,serve,tensor2bin,train}``.
+{call,serve,tensor2bin,train,sort_vcf,merge_vcf,decode_probabilities,
+dump_tensors,split_bam,models,metrics,validate_gvcf}``, and the reference's
+submodule names (``SelectQual``, ``SortVcf``, ``MergeVcf``, ``Train``, ...;
+``compat.py``).
 
 The argument surface of ``call`` is ``clair3_tpu.cli._add_call_args`` plus
 ``--device`` (the counterpart of ``JAX_PLATFORMS``).  That function, the
 input validation, the model-file resolution, the dwell-channel
-reconciliation, ``cmd_serve``, ``cmd_tensor2bin`` and the ``tensor2bin``
-and ``train`` parsers are copies of the JAX CLI's framework-free code (held
-equal to it by ``tests/test_torch_copies.py``; ``train`` adds ``--device``).
+reconciliation, ``cmd_serve``, ``cmd_tensor2bin``, the subcommands that run
+no net and their parsers, and the ``tensor2bin`` and ``train`` parsers are
+copies of the JAX CLI's framework-free code (held equal to it by
+``tests/test_torch_copies.py``; ``train`` adds ``--device``).
 ``cmd_call`` checks model-zoo names and probes the BAM for move tables in
 the JAX CLI's order, before any engine loads.  Both nets load from ``.npz``
 or from the reference's ``.pt`` state dicts (``models/convert.py``).
@@ -17,6 +21,15 @@ when no GPU is present: there is no silent CPU path.
     # the dwell channel read from the BAM's mv tags
     python -m clair3_tpu_torch call --bam_fn in.bam --ref_fn ref.fa \
         --output out --model_path DIR --platform ont --enable_dwell_time
+    # one genome over two processes (run both; on the card process i uses
+    # cuda:{i % device count}), each writing out/proc{i}, then merged
+    python -m clair3_tpu_torch call ... --output out --dist_coordinator 127.0.0.1:29500 \
+        --dist_num_processes 2 --dist_process_id 0      # and 1
+    python -m clair3_tpu_torch sort_vcf --input_fn out/proc*/merge_output.vcf.gz \
+        --output_fn merged.vcf.gz --ref_fn ref.fa
+    python -m clair3_tpu_torch sort_vcf --gvcf --input_fn out/proc*/merge_output.gvcf.gz \
+        --output_fn merged.gvcf.gz --ref_fn ref.fa
+    python -m clair3_tpu_torch validate_gvcf --gvcf_fn merged.gvcf.gz
     # the nets on one GPU host, extraction and decode elsewhere
     python -m clair3_tpu_torch serve --model_path DIR --platform ont --device cuda
     python -m clair3_tpu_torch call ... --remote_engines http://gpu-host:8618
@@ -28,16 +41,20 @@ when no GPU is present: there is no silent CPU path.
         --truth_vcf_fn truth.vcf --bin_fn p.bin --pileup --platform hifi
     python -m clair3_tpu_torch train --bin_fn p.bin --output_dir m --pileup
 
-Intermediate phasing runs in-process unless
+Under ``--dist_*`` the processes join one gloo group: each calls the chunks
+it owns, the QUAL-quantile cutoffs come from every process's rows, and
+each contig is phased from every process's het SNPs, so the merged output
+is one process's.  Intermediate phasing runs in-process unless
 ``--use_{whatshap,longphase}_for_intermediate_phasing`` hands it to that
-binary.  Not yet ported (exit 1 with a message): ``call --dist_*`` and
-``train --data_parallel`` (multi-process calling and training).
+binary.  Not yet ported (exit 1 with a message): ``train --data_parallel``
+(multi-process training).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 import sys
@@ -311,16 +328,6 @@ def _load_engine(path: str, kind: str, device: torch.device,
     return engine
 
 
-def _not_yet_ported(args) -> Optional[str]:
-    if getattr(args, "data_parallel", False):
-        return "--data_parallel (multi-process training)"
-    if (getattr(args, "dist_coordinator", None) is not None
-            or getattr(args, "dist_num_processes", None)
-            or getattr(args, "dist_process_id", None) is not None):
-        return "--dist_* (multi-process calling)"
-    return None
-
-
 def _model_paths(args):
     pileup_path, fa_path = args.pileup_model, args.full_alignment_model
     if args.model_path:
@@ -352,16 +359,8 @@ def _profiled_run(caller, profile_dir: str, device: Optional[torch.device]):
 
 
 def cmd_call(args: argparse.Namespace) -> int:
-    from clair3_tpu_torch.config import CallConfig
-    from clair3_tpu_torch.pipeline.call import VariantCaller
-
     if args.disable_c_impl:  # also governs the readers the validators open
         os.environ["CLAIR3T_DISABLE_NATIVE"] = "1"
-    missing = _not_yet_ported(args)
-    if missing:
-        print(f"[ERROR] not yet ported to clair3_tpu_torch: {missing}; use "
-              "`python -m clair3_tpu call`", file=sys.stderr)
-        return 1
     # the model block of clair3_tpu.cli.cmd_call, in its order: zoo names
     # are validated, and the mv probe runs, before any input or engine loads
     if args.enable_dwell_time and args.platform != "ont":
@@ -426,6 +425,44 @@ def cmd_call(args: argparse.Namespace) -> int:
                   "model / drop --enable_dwell_time.", file=sys.stderr)
             return 1
 
+    # --dist_process_id alone runs single-process, as in clair3_tpu
+    multi = args.dist_coordinator is not None or (args.dist_num_processes or 0) > 1
+    if multi and None in (args.dist_coordinator, args.dist_num_processes,
+                          args.dist_process_id):
+        print("[ERROR] multi-process calling needs --dist_coordinator, "
+              "--dist_num_processes and --dist_process_id", file=sys.stderr)
+        return 1
+    dist_id, dist_count = 0, 1
+    try:
+        if multi:
+            from clair3_tpu_torch.parallel.distributed import init_distributed
+
+            dist_id, dist_count = init_distributed(
+                coordinator_address=args.dist_coordinator,
+                num_processes=args.dist_num_processes,
+                process_id=args.dist_process_id)
+            if dist_count > 1:
+                args.output_dir = os.path.join(args.output_dir, f"proc{dist_id}")
+                print(f"[INFO] multi-process: process {dist_id}/{dist_count}, "
+                      f"outputs -> {args.output_dir}; merge the per-process "
+                      "VCFs afterwards with `clair3_tpu_torch sort_vcf`",
+                      file=sys.stderr)
+        return _run_call(args, dist_id, dist_count)
+    finally:
+        # a peer blocked in a collective sees this process leave, not a hang
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_call(args: argparse.Namespace, dist_id: int, dist_count: int) -> int:
+    """``call`` once its inputs are validated (and, under ``--dist_*``, the
+    process group is joined): process ``dist_id`` of ``dist_count`` calls
+    its own chunks on its own GPU (``cuda:{dist_id % device_count}``)."""
+    from clair3_tpu_torch.config import CallConfig
+    from clair3_tpu_torch.pipeline.call import VariantCaller
+
     if args.debug and not args.pileup_only:
         print("[INFO] --debug suppresses VCF rows, so the full-alignment "
               "stage has no candidates to re-call; implying --pileup_only",
@@ -434,8 +471,11 @@ def cmd_call(args: argparse.Namespace) -> int:
 
     # a --remote_engines client loads no net and runs nothing on a device
     device = None if args.remote_engines else resolve_device(args.device)
+    if device is not None and device.type == "cuda" and dist_count > 1:
+        device = torch.device("cuda", dist_id % torch.cuda.device_count())
     fields = {f.name for f in dataclasses.fields(CallConfig)}
-    cfg = CallConfig(**{k: v for k, v in vars(args).items() if k in fields})
+    cfg = CallConfig(**{**{k: v for k, v in vars(args).items() if k in fields},
+                        "dist_process_id": dist_id, "dist_process_count": dist_count})
 
     if args.use_oracle_engines:
         from clair3_tpu_torch.testing import FullAlignmentOracleEngine, PileupOracleEngine
@@ -492,6 +532,10 @@ def cmd_call(args: argparse.Namespace) -> int:
             from clair3_tpu_torch.phase import ReadBackedPhaser
 
             phaser = ReadBackedPhaser(cfg.bam_fn, min_mq=max(cfg.min_mq, 20))
+        if dist_count > 1:
+            from clair3_tpu_torch.parallel.distributed import GatheredPhaser
+
+            phaser = GatheredPhaser(phaser)
 
     caller = VariantCaller(cfg, pileup_engine=pileup_engine,
                            fa_engine=fa_engine, phaser=phaser)
@@ -501,6 +545,11 @@ def cmd_call(args: argparse.Namespace) -> int:
         outputs = caller.run()
     for name, path in outputs.items():
         print(f"[INFO] {name}: {path}")
+    if device is not None and device.type == "cuda":
+        from clair3_tpu_torch.ops import pileup_full
+
+        logging.getLogger(__name__).info("[kernels] %s",
+                                         json.dumps(pileup_full.kernel_launches))
     return 0
 
 
@@ -578,10 +627,10 @@ def cmd_train(args: argparse.Namespace) -> int:
     from clair3_tpu_torch.config import TrainConfig
     from clair3_tpu_torch.train.trainer import train_model
 
-    missing = _not_yet_ported(args)
-    if missing:
-        print(f"[ERROR] not yet ported to clair3_tpu_torch: {missing}; use "
-              "`python -m clair3_tpu train`", file=sys.stderr)
+    if args.data_parallel:
+        print("[ERROR] not yet ported to clair3_tpu_torch: --data_parallel "
+              "(multi-process training); use `python -m clair3_tpu train`",
+              file=sys.stderr)
         return 1
     device = resolve_device(args.device)
     init_variables = None
@@ -605,6 +654,283 @@ def cmd_train(args: argparse.Namespace) -> int:
     print(f"[INFO] best_val_loss={result['best_val_loss']:.4f} "
           f"model={result['model_path']}")
     return 0
+
+
+def cmd_decode_probabilities(args: argparse.Namespace) -> int:
+    """Re-decode dumped probabilities into VCF rows (reference:
+    CallVariants --input_probabilities)."""
+    import numpy as np
+
+    from clair3_tpu_torch.decode import DecodeConfig, decode_candidate
+
+    cfg = DecodeConfig(
+        add_indel_length=not args.pileup,
+        pileup=args.pileup,
+        show_ref_calls=args.show_ref,
+        gvcf=False,
+        debug=getattr(args, "debug", False),
+    )
+    out = open(args.output_fn, "w") if args.output_fn else sys.stdout
+    with open(args.probabilities_fn) as fh:
+        for line in fh:
+            pos_info, alt_info, probs_s = line.rstrip("\n").split("\t")
+            probs = np.fromstring(probs_s, sep=" ")
+            row = decode_candidate(pos_info, alt_info, probs, cfg)
+            if row:
+                out.write(row)
+    if args.output_fn:
+        out.close()
+    return 0
+
+
+def cmd_sort_vcf(args: argparse.Namespace) -> int:
+    """Sort/dedup VCF body rows from input files into one indexed VCF
+    (SortVcf equivalent).  With ``--gvcf`` the inputs are gVCF shards
+    (e.g. per-process ``merge_output.gvcf.gz`` from a ``--dist_*`` run,
+    whose non-variant blocks close at chunk boundaries): rows merge in
+    contig/position order under the gVCF header, byte-identical to a
+    single-process run's merged gVCF."""
+    from clair3_tpu_torch.io.vcf import VcfWriter, get_header
+    from clair3_tpu_torch.io.bgzf import decompress, is_gzipped
+    from clair3_tpu_torch.pipeline.merge_sort import sort_rows
+
+    rows = []
+    for path in args.input_fn:
+        text = decompress(path).decode() if is_gzipped(path) else open(path).read()
+        rows.extend(l + "\n" for l in text.splitlines() if l and not l.startswith("#"))
+    out_rows = sort_rows(rows)
+    header_contigs = None
+    if getattr(args, "gvcf", False) and args.ref_fn:
+        # called-contig header lines, like VariantCaller._write_gvcf:
+        # fai order + lengths, restricted to contigs present in the rows
+        from clair3_tpu_torch.io.fasta import FastaFile
+
+        seen = {r.split("\t", 1)[0] for r in out_rows}
+        fai = FastaFile(args.ref_fn)
+        header_contigs = [(n, fai.contig_length(n)) for n in fai.references
+                          if n in seen]
+        fai.close()
+    header = get_header(reference_file_path=args.ref_fn,
+                        sample_name=args.sample_name,
+                        gvcf=getattr(args, "gvcf", False),
+                        contigs=header_contigs)
+    with VcfWriter(args.output_fn, header) as w:
+        for row in out_rows:
+            w.write(row)
+    if args.output_fn.endswith(".gz"):
+        from clair3_tpu_torch.io.tabix import write_tabix_index
+
+        write_tabix_index(args.output_fn)
+    print(f"[INFO] wrote {len(out_rows)} rows to {args.output_fn}")
+    return 0
+
+
+def cmd_merge_vcf(args: argparse.Namespace) -> int:
+    """Merge pileup + full-alignment VCFs (MergeVcf equivalent).  Default:
+    FA calls win at their positions.  --platform ilmn: region-scoped merge
+    (realignment shifts candidate positions, so inside each full-alignment
+    window only FA calls survive; reference MergeVcf.py:59-155)."""
+    import os
+
+    from clair3_tpu_torch.io.vcf import VcfWriter, get_header
+    from clair3_tpu_torch.io.bgzf import decompress, is_gzipped
+    from clair3_tpu_torch.pipeline.merge_sort import (
+        RegionIndex, merge_pileup_and_full_alignment,
+        merge_pileup_and_full_alignment_illumina, read_full_aln_regions,
+        sort_rows)
+
+    def read_rows(path):
+        text = decompress(path).decode() if is_gzipped(path) else open(path).read()
+        return [l + "\n" for l in text.splitlines() if l and not l.startswith("#")]
+
+    if args.platform == "ilmn":
+        if not args.full_aln_regions and not args.bed_fn_prefix:
+            print("[ERROR] --platform ilmn merge needs --full_aln_regions "
+                  "or --bed_fn_prefix", file=sys.stderr)
+            return 1
+        paths = list(args.full_aln_regions or [])
+        if args.bed_fn_prefix:
+            if not os.path.isdir(args.bed_fn_prefix):
+                print(f"[ERROR] Input directory: {args.bed_fn_prefix} not "
+                      "exists!", file=sys.stderr)
+                return 1
+            # the reference concatenates every {ctg}.* candidate shard in
+            # the folder (MergeVcf.py:71-80); shards are named
+            # {ctg}.{idx}_{num}, so without --ctg_name match that shape
+            # rather than every file (the folder also holds FULL_ALN_FILE_*
+            # bookkeeping rows, which are not BED)
+            import re
+
+            if args.ctg_name:
+                keep = lambda f: f.startswith(args.ctg_name + ".")  # noqa: E731
+            else:
+                keep = lambda f: re.fullmatch(r".+\.\d+_\d+", f)  # noqa: E731
+            paths += sorted(
+                os.path.join(args.bed_fn_prefix, f)
+                for f in os.listdir(args.bed_fn_prefix) if keep(f))
+        # zero matching shards => empty region tree => pileup-only merge
+        # (the reference's bed_fn stays None and bed_tree_from returns an
+        # empty tree, MergeVcf.py:73-85)
+        merged = merge_pileup_and_full_alignment_illumina(
+            read_rows(args.pileup_vcf_fn),
+            read_rows(args.full_alignment_vcf_fn),
+            RegionIndex(read_full_aln_regions(paths)),
+            contig=args.ctg_name, qual_cutoff=args.qual,
+            print_ref_calls=args.print_ref_calls,
+            haploid_precise=args.haploid_precise,
+            haploid_sensitive=args.haploid_sensitive)
+    else:
+        merged = merge_pileup_and_full_alignment(
+            read_rows(args.pileup_vcf_fn), read_rows(args.full_alignment_vcf_fn),
+            contig=args.ctg_name, qual_cutoff=args.qual,
+            print_ref_calls=args.print_ref_calls,
+            haploid_precise=args.haploid_precise,
+            haploid_sensitive=args.haploid_sensitive)
+    merged = sort_rows(merged)
+    header = get_header(reference_file_path=args.ref_fn,
+                        sample_name=args.sample_name)
+    with VcfWriter(args.output_fn, header) as w:
+        for row in merged:
+            w.write(row)
+    if args.output_fn.endswith(".gz"):
+        from clair3_tpu_torch.io.tabix import write_tabix_index
+
+        write_tabix_index(args.output_fn)
+    print(f"[INFO] wrote {len(merged)} rows to {args.output_fn}")
+    return 0
+
+
+def cmd_dump_tensors(args: argparse.Namespace) -> int:
+    """Dump candidate tensors + positions/alt-info to the reference's
+    fixture format — `{prefix}.npy` plus `{prefix}.npy.info` rows
+    `pos_info\\talt_info` (reference: CreateTensorPileupFromCffi.py:443-452,
+    read back by CallVariantsFromCffi.py:107-133).  Debug/visualization
+    aid and golden-fixture generator."""
+    import numpy as np
+
+    from clair3_tpu_torch.config import PLATFORMS
+
+    preset = PLATFORMS[args.platform]
+    if args.full_alignment:
+        from clair3_tpu_torch.fullalign.extractor import create_fa_tensors
+
+        if not args.candidates_fn:
+            print("[ERROR] --full_alignment needs --candidates_fn "
+                  "(1-based positions, one per line)", file=sys.stderr)
+            return 1
+        with open(args.candidates_fn) as fh:
+            positions = [int(l.split()[0]) for l in fh if l.strip()]
+        tensors, pos_infos, alt_infos = create_fa_tensors(
+            args.bam_fn, args.ref_fn, args.ctg_name, positions,
+            matrix_depth=preset.matrix_depth, min_mq=args.min_mq,
+            no_phasing=True, enable_dwell=args.enable_dwell_time)
+    else:
+        from clair3_tpu_torch.pileup.extractor import create_pileup_tensors
+
+        from clair3_tpu_torch.io.fasta import FastaFile
+
+        end = args.ctg_end
+        if end is None:
+            fa = FastaFile(args.ref_fn)
+            end = fa.contig_length(args.ctg_name)
+            fa.close()
+        tensors, pos_infos, alt_infos, _ = create_pileup_tensors(
+            args.bam_fn, args.ref_fn, args.ctg_name, args.ctg_start, end,
+            min_mq=args.min_mq,
+            min_snp_af=preset.snp_min_af, min_indel_af=preset.indel_min_af)
+    np.save(args.tensor_fn, tensors)
+    path = args.tensor_fn if args.tensor_fn.endswith(".npy") \
+        else args.tensor_fn + ".npy"
+    with open(path + ".info", "w") as fh:
+        for pos_info, alt_info in zip(pos_infos, alt_infos):
+            fh.write(f"{pos_info}\t{alt_info}\n")
+    print(f"[INFO] dumped {len(pos_infos)} candidate tensors "
+          f"{tuple(tensors.shape)} -> {path}(.info)")
+    return 0
+
+
+def cmd_split_bam(args: argparse.Namespace) -> int:
+    """Split a haplotagged BAM into per-haplotype BAMs (the reference's
+    split-into-haplotypes haploid calling workflow,
+    docs/split_haplotype_into_haploid_calling.md, uses whatshap haplotag
+    + samtools split; here the HP tags written by
+    --use_haplotagging_for_final_output feed this directly)."""
+    import os
+
+    from clair3_tpu_torch.io.bam import BamReader, write_bam
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    bam = BamReader(args.bam_fn)
+    outs = {}
+    untagged = 0
+    # one streaming pass per haplotype: write_bam consumes a generator, so
+    # a WGS-scale BAM never needs its reads resident in memory
+    for hap, name in ((1, "hap1"), (2, "hap2")):
+        n = untagged = 0
+
+        def reads():
+            nonlocal n, untagged
+            for read in BamReader(args.bam_fn):
+                hp = read.tags.get("HP")
+                if hp == hap or (hp not in (1, 2) and args.include_untagged):
+                    n += 1
+                    yield read
+                if hp not in (1, 2):
+                    untagged += 1
+
+        path = os.path.join(args.output_dir, f"{name}.bam")
+        write_bam(path, bam.references, bam.lengths, reads())
+        outs[name] = path
+        print(f"[INFO] {name}: {n} reads -> {path}")
+    print(f"[INFO] untagged reads: {untagged} "
+          f"({'included in both' if args.include_untagged else 'dropped'})")
+    print("[INFO] call each haplotype with: clair3_tpu_torch call --bam_fn "
+          f"{outs['hap1']} ... --haploid_precise (or --haploid_sensitive)")
+    return 0
+
+
+def cmd_models(args: argparse.Namespace) -> int:
+    from clair3_tpu_torch.models.zoo import format_zoo_table
+
+    print(format_zoo_table())
+    return 0
+
+
+def cmd_metrics(args: argparse.Namespace) -> int:
+    """SNP/Indel precision-recall-F1 (GetOverallMetrics equivalent)."""
+    from clair3_tpu_torch.postprocess import parse_happy_vcf, variant_metrics
+
+    if args.happy_vcf_fn:
+        rows = parse_happy_vcf(args.happy_vcf_fn, args.ctg_name)
+    else:
+        from clair3_tpu_torch.io.vcf import VcfReader
+
+        truth = [r for r in VcfReader(args.truth_vcf_fn)
+                 if not args.ctg_name or r.chrom == args.ctg_name]
+        query = [r for r in VcfReader(args.query_vcf_fn)
+                 if not args.ctg_name or r.chrom == args.ctg_name]
+        rows = variant_metrics(truth, query,
+                               genotype_match=not args.ignore_genotype)
+    header = ["VariantType", "Query_FP", "Truth_FN", "Truth_TP", "Query_TP",
+              "Precision", "Recall", "F1-score"]
+    print("".join(h.ljust(14) for h in header))
+    for vt in ("SNP", "INDEL"):
+        m = rows[vt]
+        print("".join(str(x).ljust(14) for x in (
+            vt, m.query_fp, m.truth_fn, m.truth_tp, m.query_tp,
+            m.precision, m.recall, m.f1)))
+    return 0
+
+
+def cmd_validate_gvcf(args: argparse.Namespace) -> int:
+    """Structural gVCF validation (gvcf_validate.py)."""
+    from clair3_tpu_torch.gvcf_validate import main as validate_main
+
+    argv = ["--gvcf_fn", args.gvcf_fn]
+    if args.bed_fn:
+        argv += ["--bed_fn", args.bed_fn]
+    return validate_main(argv)
+
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
@@ -665,6 +991,15 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
 def main(argv=None) -> int:
     logging.basicConfig(format="%(message)s", level=logging.INFO)
+    if argv is None:
+        argv = sys.argv[1:]
+    # reference submodule spellings: `python -m clair3_tpu_torch SelectQual ...`
+    # (reference: clair3.py:80-104 dispatcher)
+    from clair3_tpu_torch.compat import dispatch
+
+    rc = dispatch(list(argv))
+    if rc is not None:
+        return rc
     parser = argparse.ArgumentParser(
         prog="clair3_tpu_torch",
         description="germline small-variant caller on PyTorch/CUDA")
@@ -721,6 +1056,74 @@ def main(argv=None) -> int:
                          "is present")
     tr.set_defaults(func=cmd_train)
 
+    sv = sub.add_parser("sort_vcf", help="sort/dedup VCFs into one indexed VCF")
+    sv.add_argument("--input_fn", nargs="+", required=True)
+    sv.add_argument("--output_fn", required=True)
+    sv.add_argument("--ref_fn", default=None)
+    sv.add_argument("--sample_name", default="SAMPLE")
+    sv.add_argument("--gvcf", action="store_true",
+                    help="inputs are gVCF shards: emit the gVCF header "
+                         "(non-variant blocks merge in position order)")
+    sv.set_defaults(func=cmd_sort_vcf)
+
+    mv = sub.add_parser("merge_vcf", help="merge pileup + full-alignment VCFs")
+    mv.add_argument("--pileup_vcf_fn", required=True)
+    mv.add_argument("--full_alignment_vcf_fn", required=True)
+    mv.add_argument("--output_fn", required=True)
+    mv.add_argument("--ref_fn", default=None)
+    mv.add_argument("--sample_name", default="SAMPLE")
+    mv.add_argument("--ctg_name", default=None)
+    mv.add_argument("--qual", type=float, default=None)
+    mv.add_argument("--print_ref_calls", action="store_true")
+    mv.add_argument("--haploid_precise", action="store_true")
+    mv.add_argument("--haploid_sensitive", action="store_true")
+    mv.add_argument("--platform", default="ont", choices=("ont", "hifi", "ilmn"))
+    mv.add_argument("--full_aln_regions", nargs="+", default=None,
+                    help="ilmn: full-alignment region BED file(s)")
+    mv.add_argument("--bed_fn_prefix", default=None,
+                    help="ilmn: candidate folder holding {ctg}.* region "
+                         "shards (reference spelling)")
+    mv.set_defaults(func=cmd_merge_vcf)
+
+    dp = sub.add_parser("decode_probabilities",
+                        help="re-decode dumped head probabilities to VCF rows")
+    dp.add_argument("--probabilities_fn", required=True)
+    dp.add_argument("--output_fn", default=None)
+    dp.add_argument("--pileup", action="store_true")
+    dp.add_argument("--show_ref", action="store_true")
+    dp.add_argument("--debug", action="store_true",
+                    help="print raw head probabilities instead of VCF rows")
+    dp.set_defaults(func=cmd_decode_probabilities)
+
+    dt = sub.add_parser("dump_tensors",
+                        help="dump candidate tensors to the reference's "
+                             ".npy + .info fixture format")
+    dt.add_argument("--bam_fn", required=True)
+    dt.add_argument("--ref_fn", required=True)
+    dt.add_argument("--ctg_name", required=True)
+    dt.add_argument("--ctg_start", type=int, default=1)
+    dt.add_argument("--ctg_end", type=int, default=None)
+    dt.add_argument("--tensor_fn", required=True,
+                    help="output prefix; writes {prefix}.npy + .npy.info")
+    dt.add_argument("--platform", default="ont", choices=("ont", "hifi", "ilmn"))
+    dt.add_argument("--min_mq", type=int, default=5)
+    dt.add_argument("--full_alignment", action="store_true",
+                    help="dump FA tensors for --candidates_fn positions "
+                         "instead of pileup tensors")
+    dt.add_argument("--candidates_fn", default=None)
+    dt.add_argument("--enable_dwell_time", action="store_true")
+    dt.set_defaults(func=cmd_dump_tensors)
+
+    sb = sub.add_parser("split_bam",
+                        help="split a haplotagged BAM (HP tags) into "
+                             "per-haplotype BAMs for haploid calling")
+    sb.add_argument("--bam_fn", required=True)
+    sb.add_argument("--output_dir", required=True)
+    sb.add_argument("--include_untagged", action="store_true",
+                    help="route untagged reads into both haplotype BAMs")
+    sb.set_defaults(func=cmd_split_bam)
+
+
     srv = sub.add_parser(
         "serve", help="serve the inference engines over HTTP (remote "
                       "calling hosts use `call --remote_engines`)")
@@ -739,5 +1142,31 @@ def main(argv=None) -> int:
                      help="device of the served nets; cuda raises when no GPU "
                           "is present")
     srv.set_defaults(func=cmd_serve)
-    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+
+    zl = sub.add_parser(
+        "models",
+        help="list the known pretrained checkpoint registry (models/zoo.py)")
+    zl.set_defaults(func=cmd_models)
+
+    mt = sub.add_parser("metrics", help="SNP/Indel P/R/F1 vs a truth set")
+    mt.add_argument("--truth_vcf_fn", default=None)
+    mt.add_argument("--query_vcf_fn", default=None)
+    mt.add_argument("--happy_vcf_fn", default=None,
+                    help="digest a hap.py output VCF instead")
+    mt.add_argument("--ctg_name", default=None)
+    mt.add_argument("--ignore_genotype", action="store_true")
+    mt.set_defaults(func=cmd_metrics)
+
+    vg = sub.add_parser(
+        "validate_gvcf",
+        help="structural gVCF validator (GATK-ValidateVariants-equivalent: "
+             "block continuity, END ordering, PL/GQ consistency, header "
+             "contract)")
+    vg.add_argument("--gvcf_fn", required=True)
+    vg.add_argument("--bed_fn", default=None,
+                    help="regions the run was restricted to (coverage gaps "
+                         "allowed only across region boundaries)")
+    vg.set_defaults(func=cmd_validate_gvcf)
+
+    args = parser.parse_args(argv)
     return args.func(args)

@@ -52,9 +52,6 @@ from clair3_tpu_torch.pileup.extractor import create_pileup_tensors
 
 logger = logging.getLogger(__name__)
 
-# multi-process calling needs the JAX package's parallel.distributed
-_NO_DIST = "multi-process calling (dist_process_count > 1) is not ported"
-
 
 @dataclass
 class ChunkTask:
@@ -715,7 +712,13 @@ class VariantCaller:
             chunk_size = (longest + n - 1) // n if cfg.chunk_num > 0 else 1 << 40
         tasks = plan_chunks(contigs, chunk_size)
         if cfg.dist_process_count > 1:
-            raise NotImplementedError(_NO_DIST)
+            from clair3_tpu_torch.parallel.distributed import own_tasks
+
+            tasks = own_tasks(tasks, cfg.dist_process_id,
+                              cfg.dist_process_count)
+            logger.info("[plan] process %d/%d owns %d chunks",
+                        cfg.dist_process_id, cfg.dist_process_count,
+                        len(tasks))
         logger.info("[plan] %d contigs, %d chunks", len(contigs), len(tasks))
 
         with self._timed("pileup"):
@@ -746,7 +749,18 @@ class VariantCaller:
         pileup_stats = collect_pileup_stats(pileup_rows)
         global_phase_qual = None
         if cfg.dist_process_count > 1:
-            raise NotImplementedError(_NO_DIST)
+            # multi-host: quantile cutoffs must come from EVERY process's
+            # rows or shards route different candidates than a single
+            # process (the reference's SelectQual likewise runs over the
+            # complete pileup VCF, preprocess/SelectQual.py)
+            from clair3_tpu_torch.parallel.distributed import gather_rowpack
+            from clair3_tpu_torch.pipeline.select import (cutoffs_from_rowpack,
+                                                    stats_rowpack)
+
+            pack = gather_rowpack(stats_rowpack(pileup_stats, contig_names))
+            var_qual, ref_qual, global_phase_qual = cutoffs_from_rowpack(
+                *pack, cfg.var_pct_full, cfg.ref_pct_full,
+                cfg.var_pct_phasing)
         else:
             var_qual, ref_qual = select_qual_from_stats(
                 pileup_stats, cfg.var_pct_full, cfg.ref_pct_full)

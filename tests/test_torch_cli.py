@@ -1,5 +1,7 @@
-"""The port's CLI surface: device and dtype resolution, the flags that are
-not ported yet (exit 1 with a message, before any input is read), model-zoo
+"""The port's CLI surface: device and dtype resolution, the flag that is not
+ported yet (``train --data_parallel``: exit 1 with a message, before any
+input is read), ``--dist_process_id`` alone and a wrong-sized process
+group, model-zoo
 names and the move-table probe (twins of ``tests/test_zoo.py``, with the
 JAX CLI's exit codes), external phasers (twins of
 ``tests/test_external_phaser.py``, with its stub binaries), ``--profile_dir``,
@@ -42,18 +44,40 @@ def test_cuda_without_a_gpu_raises():
     assert resolve_device("cpu") == CPU
 
 
-@pytest.mark.parametrize("extra,what", [
-    (["--dist_num_processes", "2"], "--dist_*"),
-    (["--dist_process_id", "0"], "--dist_*"),
-])
-def test_unported_flags_exit_1(tmp_path, capsys, extra, what):
-    argv = ["call", "--bam_fn", str(tmp_path / "missing.bam"),
-            "--ref_fn", str(tmp_path / "missing.fa"), "--output", str(tmp_path / "out"),
-            "--device", "cpu", "--pileup_model", trained_fixture_path("pileup_hifi.npz"),
-            *extra]
-    assert main(argv) == 1
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and what in err
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("case", ["process_id_only", "world_size_mismatch"])
+def test_dist_flags(tmp_path, capsys, tagless_case, case):
+    """``--dist_process_id`` alone runs single-process, as in clair3_tpu
+    (outputs in ``--output`` itself); a process group whose size is not
+    ``--dist_num_processes`` raises instead of running every process as a
+    single-process job over one output directory, and is left destroyed."""
+    import torch.distributed as dist
+
+    fa, bam = tagless_case
+    models = ("--pileup_model", trained_fixture_path("pileup_hifi.npz"), "--pileup_only",
+              "--platform", "hifi")
+    if case == "process_id_only":
+        assert _call(tmp_path, bam, fa, *models, "--dist_process_id", "0") == 0
+        assert os.path.exists(tmp_path / "out" / "merge_output.vcf.gz")
+        assert not os.path.exists(tmp_path / "out" / "proc0")
+        assert "multi-process" not in capsys.readouterr().err
+        return
+    addr = f"127.0.0.1:{_free_port()}"
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="world_size=1"):
+            _call(tmp_path, bam, fa, *models, "--dist_coordinator", addr,
+                  "--dist_num_processes", "2", "--dist_process_id", "0")
+        assert not dist.is_initialized()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert not os.path.exists(tmp_path / "out")
 
 
 @pytest.fixture(scope="module")

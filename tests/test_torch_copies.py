@@ -20,7 +20,7 @@ JAX = os.path.join(REPO, "clair3_tpu")
 PORT = os.path.join(REPO, "clair3_tpu_torch")
 
 VERBATIM = [
-    "config.py", "gvcf.py", "postprocess.py",
+    "compat.py", "config.py", "gvcf.py", "gvcf_validate.py", "postprocess.py",
     "models/convert.py", "models/schema.py", "models/zoo.py",
     "task/__init__.py", "task/labels.py", "utils/__init__.py",
     "io/__init__.py", "io/arith.py", "io/bai.py", "io/bam.py", "io/bed.py", "io/bgzf.py",
@@ -28,7 +28,7 @@ VERBATIM = [
     "io/tabix.py", "io/tok3.py", "io/vcf.py",
     "pileup/__init__.py", "pileup/extractor.py", "fullalign/__init__.py",
     "fullalign/extractor.py", "decode/__init__.py", "decode/decoder.py",
-    "pipeline/merge_sort.py", "pipeline/select.py",
+    "pipeline/call.py", "pipeline/merge_sort.py", "pipeline/select.py",
     "phase/__init__.py", "phase/external.py", "phase/final_phasing.py", "phase/phaser.py",
     "realign/__init__.py", "realign/align.py", "realign/dbg.py", "realign/realigner.py",
     "train/data.py", "train/unify.py",
@@ -40,34 +40,8 @@ VERBATIM = [
     "native/clair3t_xz.cc",
 ]
 
-_NO_DIST = "            raise NotImplementedError(_NO_DIST)\n"
-
 # file -> the (old, new) edits that turn the substituted original into the copy
 EDITED = {
-    # the --dist_* branches need parallel.distributed (jax); they raise
-    "pipeline/call.py": [
-        ("logger = logging.getLogger(__name__)\n",
-         "logger = logging.getLogger(__name__)\n\n"
-         "# multi-process calling needs the JAX package's parallel.distributed\n"
-         '_NO_DIST = "multi-process calling (dist_process_count > 1) is not ported"\n'),
-        ("            from clair3_tpu_torch.parallel.distributed import own_tasks\n\n"
-         "            tasks = own_tasks(tasks, cfg.dist_process_id,\n"
-         "                              cfg.dist_process_count)\n"
-         '            logger.info("[plan] process %d/%d owns %d chunks",\n'
-         "                        cfg.dist_process_id, cfg.dist_process_count,\n"
-         "                        len(tasks))\n", _NO_DIST),
-        ("            # multi-host: quantile cutoffs must come from EVERY process's\n"
-         "            # rows or shards route different candidates than a single\n"
-         "            # process (the reference's SelectQual likewise runs over the\n"
-         "            # complete pileup VCF, preprocess/SelectQual.py)\n"
-         "            from clair3_tpu_torch.parallel.distributed import gather_rowpack\n"
-         "            from clair3_tpu_torch.pipeline.select import (cutoffs_from_rowpack,\n"
-         "                                                    stats_rowpack)\n\n"
-         "            pack = gather_rowpack(stats_rowpack(pileup_stats, contig_names))\n"
-         "            var_qual, ref_qual, global_phase_qual = cutoffs_from_rowpack(\n"
-         "                *pack, cfg.var_pct_full, cfg.ref_pct_full,\n"
-         "                cfg.var_pct_phasing)\n", _NO_DIST),
-    ],
     # the override has a name of the port's own; one build under a file lock
     "native/__init__.py": [
         ("import ctypes\nimport os\n", "import ctypes\nimport fcntl\nimport os\n"),
@@ -137,7 +111,10 @@ DEFINITIONS = {
     # the help text describes the port's backend, not the TPU's
     "cli.py": ("clair3_tpu/cli.py", ["_add_call_args", "_reconcile_dwell",
                                      "resolve_model_file", "_validate_call_inputs",
-                                     "cmd_serve", "cmd_tensor2bin"], {
+                                     "cmd_serve", "cmd_tensor2bin",
+                                     "cmd_decode_probabilities", "cmd_sort_vcf",
+                                     "cmd_merge_vcf", "cmd_dump_tensors", "cmd_split_bam",
+                                     "cmd_models", "cmd_metrics", "cmd_validate_gvcf"], {
         "_add_call_args": [
             ('"server (e.g. http://tpu-host:8618); no local "\n'
              '                        "models needed")',
@@ -247,9 +224,16 @@ def test_copied_definitions_equal_originals(key):
         assert name not in have, f"{rel} carries {name}, which needs jax"
 
 
-# the `tensor2bin` and `train` parsers of the JAX CLI's main(), as blocks of
-# the port's main(); `train` says --data_parallel is not ported and adds --device
+# the parsers of the JAX CLI's main(), as blocks of the port's main();
+# `train` says --data_parallel is not ported and adds --device
 PARSER_BLOCKS = {
+    "sort_vcf..decode_probabilities": (
+        '    sv = sub.add_parser("sort_vcf"',
+        '    dp.set_defaults(func=cmd_decode_probabilities)\n', []),
+    "dump_tensors..split_bam": ('    dt = sub.add_parser("dump_tensors"',
+                                '    sb.set_defaults(func=cmd_split_bam)\n', []),
+    "models..validate_gvcf": ('    zl = sub.add_parser(',
+                              '    vg.set_defaults(func=cmd_validate_gvcf)\n', []),
     "tensor2bin": ('    t2b = sub.add_parser("tensor2bin"', '    t2b.set_defaults(func=cmd_tensor2bin)\n',
                    []),
     "train": ('    tr = sub.add_parser("train"', '    tr.set_defaults(func=cmd_train)\n', [
@@ -279,6 +263,28 @@ def test_parser_blocks_equal_originals(name):
     assert _block(_read(os.path.join(PORT, "cli.py")), start, end) == want
 
 
+# the reference-flag entry point: --device passes on to the port's `call`,
+# whose default is the GPU, where the original drops it
+ENTRY_EDITS = [
+    ("    python run_clair3_tpu.py --bam_fn", "    python run_clair3_tpu_torch.py --bam_fn"),
+    ("    # external-tool paths and device selection the reference accepts but the\n"
+     "    # single-program design has no use for (value-taking flags)\n"
+     '    ignored = {"--pypy", "--python", "--samtools", "--parallel", "--device"}\n',
+     "    # external-tool paths the reference accepts but the single-program design\n"
+     "    # has no use for (value-taking flags); --device passes on to `call`,\n"
+     "    # which runs on the GPU unless it says cpu\n"
+     '    ignored = {"--pypy", "--python", "--samtools", "--parallel"}\n'),
+]
+
+
+def test_entry_point_differs_only_as_named():
+    want = _sub(_read(os.path.join(REPO, "run_clair3_tpu.py")))
+    for old, new in ENTRY_EDITS:
+        assert old in want, f"the named edit no longer applies: {old[:80]!r}"
+        want = want.replace(old, new)
+    assert _read(os.path.join(REPO, "run_clair3_tpu_torch.py")) == want
+
+
 def test_every_copy_is_listed():
     """Every file of the port that shares a relative path with the JAX
     package is checked above."""
@@ -293,6 +299,7 @@ def test_every_copy_is_listed():
     # the port's own modules that share a name with the JAX package's
     own = {"__init__.py", "__main__.py", "models/__init__.py", "models/full_alignment.py",
            "models/pileup.py", "ops/__init__.py", "ops/lstm.py",
+           "parallel/__init__.py", "parallel/distributed.py",
            "pipeline/__init__.py", "pipeline/engine.py",
            "train/__init__.py", "train/step.py", "train/trainer.py"}
     assert shared - own == listed, sorted((shared - own) ^ listed)

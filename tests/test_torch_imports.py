@@ -1,7 +1,8 @@
-"""No file of the port, and not ``chip_smoke.py``, imports the JAX package.
+"""No file of the port, and neither ``chip_smoke.py`` nor
+``run_clair3_tpu_torch.py``, imports the JAX package.
 
-Every ``.py`` file under ``clair3_tpu_torch/`` and ``chip_smoke.py`` is
-parsed with ``ast``.  An ``import clair3_tpu``, ``import clair3_tpu.x``,
+Every ``.py`` file under ``clair3_tpu_torch/``, ``chip_smoke.py`` and
+``run_clair3_tpu_torch.py`` is parsed with ``ast``.  An ``import clair3_tpu``, ``import clair3_tpu.x``,
 ``from clair3_tpu import ...`` or ``from clair3_tpu.x import ...`` fails, and
 so does a path built from ``clair3_tpu.__file__``.  ``clair3_tpu_torch``
 is another name and passes.
@@ -16,7 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "run_clair3_tpu_torch.py")]
     for root, dirs, files in os.walk(os.path.join(REPO, "clair3_tpu_torch")):
         dirs[:] = sorted(d for d in dirs if not d.startswith(("__pycache__", "_kernels")))
         out += [os.path.join(root, f) for f in sorted(files) if f.endswith(".py")]
@@ -55,7 +56,8 @@ def test_every_port_module_is_checked():
     for rel in ("serve.py", "models/convert.py", "models/schema.py", "models/params_io.py",
                 "cli.py", "device.py", "models/init.py", "full_cascade_demo.py", "train/__init__.py",
                 "train/data.py", "train/unify.py", "train/loss.py", "train/step.py",
-                "train/trainer.py"):
+                "train/trainer.py", "compat.py", "gvcf_validate.py",
+                "parallel/distributed.py", "pipeline/call.py"):
         assert os.path.join("clair3_tpu_torch", rel) in files, rel
 
 

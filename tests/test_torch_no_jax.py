@@ -8,8 +8,9 @@ from a bin, and `python -m clair3_tpu_torch.full_cascade_demo` runs end to
 end at a tiny scale.  The refusal matches the top-level name exactly, so
 `clair3_tpu_torch` itself loads.  With them refused, the same call also
 runs from the reference's `.pt` files (`models/convert.py`,
-`models/schema.py`) and as a `--remote_engines` client of a port server
-(`serve.py`)."""
+`models/schema.py`), as a `--remote_engines` client of a port server
+(`serve.py`) and as two `--dist_*` processes that gather their rows, and
+`sort_vcf` runs under its own name and the reference's `SortVcf`."""
 
 import gzip
 import os
@@ -163,3 +164,60 @@ def test_full_cascade_demo_runs_without_jax(tmp_path):
     assert proc.returncode in (0, 1), proc.stderr[-3000:]
     assert "F1-score" in proc.stdout and "[full] total" in proc.stdout, proc.stdout[-3000:]
     assert os.path.exists(tmp_path / "demo" / "pileup_model" / "best_val_loss.npz")
+
+
+_VCF_HEADER = "##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS\n"
+
+
+@pytest.mark.parametrize("spelling", ["sort_vcf", "SortVcf"])
+def test_sort_vcf_runs_without_jax(tmp_path, spelling):
+    """The port's `sort_vcf` and the reference's `SortVcf` spelling of it."""
+    shards = tmp_path / "shards"
+    shards.mkdir()
+    (shards / "a.vcf").write_text(_VCF_HEADER + "chr1\t500\t.\tA\tG\t20\tPASS\t.\tGT\t0/1\n")
+    (shards / "b.vcf").write_text(_VCF_HEADER + "chr1\t100\t.\tC\tT\t30\tPASS\t.\tGT\t1/1\n")
+    out = tmp_path / "sorted.vcf.gz"
+    args = (["sort_vcf", "--input_fn", str(shards / "a.vcf"), str(shards / "b.vcf")]
+            if spelling == "sort_vcf" else ["SortVcf", "--input_dir", str(shards)])
+    proc = _refused_run(tmp_path, *args, "--output_fn", str(out))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with gzip.open(out, "rt") as fh:
+        assert [l.split("\t")[1] for l in fh if not l.startswith("#")] == ["100", "500"]
+
+
+def test_dist_call_runs_without_jax(tmp_path):
+    """Two `call --dist_*` processes: the gather of their rows
+    (`gather_rowpack`) and everything around it load none of the refused
+    packages."""
+    import socket
+
+    fasta, bam = _verify_case(tmp_path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for i in range(2):
+        logs.append(tmp_path / f"dist{i}.log")
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _DRIVER, "refused", "call", "--bam_fn", bam,
+                 "--ref_fn", fasta, "--output", str(tmp_path / "out"), "--platform", "hifi",
+                 "--threads", "1", "--chunk_size", "1500", "--pileup_model", PILEUP_NPZ,
+                 "--full_alignment_model", FA_NPZ, "--device", "cpu",
+                 "--dist_coordinator", f"127.0.0.1:{port}", "--dist_num_processes", "2",
+                 "--dist_process_id", str(i)],
+                cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO), stdout=log,
+                stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        text = log.read_text()
+        assert p.returncode == 0, text[-3000:]
+        assert "BLOCKED_LOADED=[]" in text and "from 2 processes" in text, text[-3000:]
+        assert os.path.exists(tmp_path / "out" / f"proc{i}" / "merge_output.vcf.gz")
