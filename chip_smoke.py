@@ -155,9 +155,40 @@ Phase 8  multi-process calling, every call an OS process of its own: one
          process wrote rows; `validate_gvcf` passes on the merged gVCF.
          Prints each process's wall (spawn to exit, host clock), the pair's
          wall, each process's gather (barrier and all_gather ms) and the
-         pair's summed launches.
+         pair's summed launches.  Then genotyping mode (`--vcf_fn` of the
+         region's simulated variants) and final phasing
+         (`--use_phasing_for_final_output --use_haplotagging_for_final_output`),
+         each as one process and as a pair, all three started together:
+         the merged VCF and gVCF, and the merged phased VCF, against the
+         single process's, flip budget 0 (byte identity printed; known
+         sites added back as ./. counted); process 0's phased_output.bam
+         carries the single process's HP/PS tags on every read, and process
+         1 writes none; the same launch and import checks for every child.
 
-With --phases (a comma-separated subset of 1-8) only those phases run (the
+Phase 9  data-parallel training (`fit(..., data_parallel=True)`, the path of
+         `train --data_parallel`; h5py is not needed: seeded arrays from
+         memory through testing.ArrayDataset), every rank an OS process
+         under `python -m torch.distributed.run --standalone`, f32 with
+         TF32 off and cudnn.deterministic, the demo's geometry (chunks of
+         100 rows; pileup batch 1000, 3 steps; FA batch 500, 3 steps and 1
+         step).  One rank on NCCL against the plain single-device `fit` in
+         this process: losses and parameters within 1e-6 (bit-for-bit
+         equality printed).  Two gloo ranks sharing cuda:0 (NCCL refuses
+         two ranks on one GPU) against the one rank on the same batches,
+         the two ranks' nets equal bit for bit: the pileup net's losses
+         within rtol 1e-5 and its parameters within 1e-5 on all but a 1e-5
+         share of the entries (AdamW moves an entry whose gradient is
+         rounding noise by up to lr a step, bounded at 2 lr); the FA net
+         after one step: training loss within rtol 1e-5, the cross-rank
+         BatchNorm's running statistics within 1e-6, validation loss within
+         rtol 1e-3, parameters within 2 lr.  Then each net's step at its
+         batch, plain and as the one NCCL rank's DDP replica, timed in turns
+         (plain, DDP, DDP, plain; each the median of 20 after 5 warm steps,
+         CUDA events), and the DDP overhead.  Every
+         rank's parameters on the card, and no rank loaded jax or
+         clair3_tpu.  Two ranks sharing one card give no speed figure.
+
+With --phases (a comma-separated subset of 1-9) only those phases run (the
 kernels are built in any case) and the script ends without the kernels'
 record and the ok line.  Otherwise the line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
@@ -198,7 +229,7 @@ EVAL_SEED = 91
 GATE_SNP_F1 = 0.990
 GATE_INDEL_F1 = 0.992
 DEVICE = "cuda"
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 CALL_ARGS = ["--platform", "hifi", "--indel_min_af", "0.12", "--threads", "4",
              "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
 # the ONT region and gates of tests/test_trained_fixture_cascade.py
@@ -1415,7 +1446,7 @@ def child_report(tag, log):
     return k, gather and (float(gather.group(1)), float(gather.group(2)))
 
 
-def phase8_multiprocess(torch, work, fasta, bam, smi):
+def phase8_multiprocess(torch, work, fasta, bam, variants, smi):
     """Multi-process calling on the card: one bf16 `call --gvcf` on the
     phase-3 region, then two `--dist_*` processes sharing cuda:0, merged by
     the port's `sort_vcf` and `sort_vcf --gvcf`, then one
@@ -1485,8 +1516,354 @@ def phase8_multiprocess(torch, work, fasta, bam, smi):
           "validate_gvcf failed on the merged gVCF")
     pair = {k: launches["proc0"][k] + launches["proc1"][k] for k in launches["proc0"]}
     print(f"[phase8] pileup launches of the pair: {pair}")
+    phase8_genotyping_and_final_phasing(work, args + models, fasta, variants, smi)
     return {"walls": {tag: wall for tag, (wall, _) in ran.items()}, "pair_wall": pair_wall,
             "gathers": gathers, "launches": launches}
+
+
+def bam_tags(path):
+    """(name, flag, position, HP, PS) of every read of a BAM."""
+    from clair3_tpu_torch.io.bam import BamReader
+
+    return sorted((r.qname, r.flag, r.pos, r.tags.get("HP"), r.tags.get("PS"))
+                  for r in BamReader(path))
+
+
+def phase8_genotyping_and_final_phasing(work, argv, fasta, variants, smi):
+    """Genotyping mode (`--vcf_fn` of the region's simulated variants) and
+    final phasing with haplotagging, each as one process and as a pair of
+    `--dist_*` processes on cuda:0, all three started together; the pair's
+    files merged by `sort_vcf` against the single process's."""
+    from clair3_tpu_torch import cli as port_cli
+    from clair3_tpu_torch.io.vcf import VcfRecord, VcfWriter, get_header
+
+    known = os.path.join(work, "p8_known.vcf")
+    with VcfWriter(known, get_header(contigs=[("chr1", EVAL_BP)])) as w:
+        for v in variants:
+            w.write(VcfRecord("chr1", v.pos + 1, v.ref, v.alt, 60, "PASS", ".", "GT",
+                              "1/1" if v.genotype == (1, 1) else "0/1"))
+    runs = {"genotyping": (["--vcf_fn", known], ["merge_output.vcf.gz", "merge_output.gvcf.gz"]),
+            "final_phasing": (["--use_phasing_for_final_output",
+                               "--use_haplotagging_for_final_output"],
+                              ["phased_merge_output.vcf.gz"])}
+    for mode, (extra, names) in runs.items():
+        single, dist_dir = os.path.join(work, f"p8_{mode}"), os.path.join(work, f"p8_{mode}_dist")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        children = {"single": spawn_child(work, f"p8_{mode}_single", "clair3_tpu_torch",
+                                          ["call", *argv, *extra, "--output", single])}
+        children.update({f"proc{i}": spawn_child(
+            work, f"p8_{mode}_proc{i}", "clair3_tpu_torch",
+            ["call", *argv, *extra, "--output", dist_dir, "--dist_coordinator",
+             f"127.0.0.1:{port}", "--dist_num_processes", "2", "--dist_process_id", str(i)])
+            for i in range(2)})
+        for tag, (wall, log) in wait_children(children).items():
+            print(f"[phase8] {mode} {tag}: wall {wall:.3f} s ({smi}); pileup launches "
+                  f"{child_report(f'{mode} {tag}', log)[0]}")
+        merged = os.path.join(work, f"p8_{mode}_merged")
+        os.makedirs(merged)
+        for name in names:
+            shards = [os.path.join(dist_dir, f"proc{i}", name) for i in range(2)]
+            check(port_cli.main(["sort_vcf", "--input_fn", *shards, "--output_fn",
+                                 os.path.join(merged, name), "--ref_fn", fasta,
+                                 *(["--gvcf"] if "gvcf" in name else [])]) == 0,
+                  f"sort_vcf {mode} {name}")
+            with gzip.open(os.path.join(merged, name), "rt") as a, \
+                    gzip.open(os.path.join(single, name), "rt") as b:
+                print(f"[phase8] {mode}: merged {name} byte-identical to the single process's: "
+                      f"{a.read() == b.read()}")
+            rows_equivalent("phase8", f"{mode} merged vs single", single, merged, name)
+        if mode == "genotyping":
+            # a known site not called is written as ./. (postprocess.py)
+            added = [r for r in _rows(os.path.join(merged, "merge_output.vcf.gz"))
+                     if r.split("\t")[4] == "." and r.rstrip("\n").endswith("\t./.")]
+            print(f"[phase8] genotyping: {len(variants)} known sites, {len(added)} added back "
+                  "as ./. in the merged VCF")
+        else:
+            check(not os.path.exists(os.path.join(dist_dir, "proc1", "phased_output.bam")),
+                  "phase 8: process 1 wrote a haplotagged BAM")
+            want = bam_tags(os.path.join(single, "phased_output.bam"))
+            got = bam_tags(os.path.join(dist_dir, "proc0", "phased_output.bam"))
+            print(f"[phase8] final_phasing: process 0's phased_output.bam, {len(got)} reads, "
+                  f"{sum(t[3] is not None for t in got)} tagged, HP/PS equal to the single "
+                  f"process's: {got == want}")
+            check(got == want, "phase 8: process 0's HP/PS tags differ from one process's")
+
+
+# one rank of phase 9, started by torchrun: `fit` on the arrays of each net
+# named in the JSON argument as rank RANK of the group torchrun describes
+# (`parallel/mesh.py::run_ranks`); writes each net's history and state to
+# {out}.{net}.{rank}.npz and, with "time", the step times to {out}.times.json
+PHASE9_RANK = """
+import json
+import sys
+
+import numpy as np
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+
+from clair3_tpu_torch.parallel.mesh import run_ranks
+
+args = json.loads(sys.argv[1])
+
+
+def rank(device):
+    import torch.distributed as dist
+
+    import chip_smoke
+    from clair3_tpu_torch.train import trainer
+
+    nets, replicate = [], trainer.replicate
+
+    def recording(net, dev):
+        nets.append(net)
+        return replicate(net, dev)
+
+    trainer.replicate = recording
+    r = dist.get_rank()
+    for name, spec in args["nets"].items():
+        hist, state = chip_smoke.phase9_fit(spec, device, data_parallel=True)
+        on_card = all(p.device == device for p in nets[-1].parameters())
+        np.savez(f"{args['out']}.{name}.{r}.npz", history=hist, on_card=on_card,
+                 backend=dist.get_backend(), world=dist.get_world_size(), **state)
+    if args.get("time") and r == 0:
+        with open(f"{args['out']}.times.json", "w") as fh:
+            json.dump(chip_smoke.phase9_step_times(torch, args["nets"], device), fh)
+    blocked = ("jax", "jaxlib", "flax", "optax", "clair3_tpu")
+    print(f"[rank {r}] loaded {sorted(m for m in sys.modules if m.split('.')[0] in blocked)}",
+          flush=True)
+
+
+run_ranks(rank, torch.device(args["device"]), backend=args.get("backend"))
+"""
+PHASE9_TIMEOUT_S = 600
+# the demo's training geometry (full_cascade_demo.train_configs): chunks of
+# 100 rows, batches of 1000 pileup and 500 FA rows
+PHASE9_NETS = {
+    "pileup": dict(pileup=True, add_indel_length=False, batch_size=1000, chunk_size_pileup=100,
+                   seed=0),
+    "fa": dict(pileup=False, add_indel_length=True, batch_size=500, chunk_size_fa=100, seed=0),
+}
+
+
+def phase9_rows(kind, n, seed):
+    """``n`` seeded rows of ``kind``'s tensors and one-hot labels."""
+    import numpy as np
+
+    from clair3_tpu_torch.config import LABEL_SHAPE
+
+    rng = np.random.RandomState(seed)
+    if kind == "pileup":
+        x = rng.randint(-30, 30, (n, 33, 18)).astype(np.int32)
+    else:
+        x = rng.randint(-100, 101, (n, 55, 33, 8)).astype(np.int8)
+    y, start = np.zeros((n, sum(LABEL_SHAPE)), np.float32), 0
+    for size in LABEL_SHAPE:
+        y[np.arange(n), start + rng.randint(0, size, n)] = 1.0
+        start += size
+    return x, y
+
+
+def phase9_fit(spec, device, data_parallel=False):
+    """``trainer.fit`` from memory on one spec of phase 9; returns its
+    history and the trained net's state, on the host."""
+    import numpy as np
+
+    from clair3_tpu_torch.config import TrainConfig
+    from clair3_tpu_torch.testing import ArrayDataset
+    from clair3_tpu_torch.train import trainer
+
+    nets, build = [], trainer.build_model
+    trainer.build_model = lambda *a: nets.append(build(*a)) or nets[-1]
+    try:
+        with np.load(spec["data"]) as z:
+            data = ArrayDataset([z["x"]], [z["y"]], chunk_size=spec["cfg"]["chunk_size_" + (
+                "pileup" if spec["cfg"]["pileup"] else "fa")])
+        r = trainer.fit(data, spec["out_dir"], TrainConfig(**spec["cfg"]),
+                        max_steps=spec["steps"], device=device, data_parallel=data_parallel)
+    finally:
+        trainer.build_model = build
+    return (np.array(r["history"], np.float64),
+            {k: v.cpu().numpy() for k, v in nets[-1].state_dict().items()})
+
+
+def phase9_step_times(torch, specs, device):
+    """Each net's step at its batch, plain and as the one rank of the
+    joined group (``train/step.py::replicate``), on fresh nets started as
+    the trainer starts them: ``time_train_steps`` of each, in turns (plain,
+    DDP, DDP, plain), since a launch-bound step moves with the host."""
+    import numpy as np
+
+    from clair3_tpu_torch.config import TrainConfig
+    from clair3_tpu_torch.models.init import init_weights
+    from clair3_tpu_torch.train.step import make_optimizer, replicate
+    from clair3_tpu_torch.train.trainer import build_model
+
+    out = {}
+    for name in ("pileup", "fa"):
+        cfg = TrainConfig(**specs[name]["cfg"])
+        with np.load(specs[name]["data"]) as z:
+            x = torch.from_numpy(z["x"][:cfg.batch_size]).to(device)
+            y = torch.from_numpy(z["y"][:cfg.batch_size]).to(device)
+        runs = {}
+        for route in ("plain", "ddp"):
+            net = build_model(cfg, x.shape[-1])
+            init_weights(net, torch.Generator().manual_seed(cfg.seed))
+            net.to(device)
+            opt = make_optimizer(net, cfg.learning_rate, cfg.weight_decay)
+            gen = torch.Generator(device=device).manual_seed(cfg.seed)
+            runs[route] = (replicate(net, device) if route == "ddp" else net, opt, gen)
+        for route in ("plain", "ddp", "ddp", "plain"):
+            model, opt, gen = runs[route]
+            out.setdefault(f"{name} {route}", []).append(time_train_steps(
+                torch, model, opt, x, y, gen, cfg.add_indel_length))
+    return out
+
+
+def run_torchrun(work, tag, nproc, args):
+    """PHASE9_RANK on ``nproc`` ranks under ``python -m torch.distributed.run
+    --standalone`` (its own session, killed whole at the time limit);
+    returns its log."""
+    import signal
+
+    script = os.path.join(work, "phase9_rank.py")
+    with open(script, "w") as fh:
+        fh.write(PHASE9_RANK)
+    log_path = os.path.join(work, f"p9_{tag}.log")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", str(nproc), script, json.dumps(args)],
+                                stdout=log, stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+    try:
+        proc.wait(timeout=PHASE9_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    text = open(log_path).read()
+    check(proc.returncode == 0, f"phase 9 {tag} exited {proc.returncode}:\n{text[-4000:]}")
+    check(text.count("] loaded []") == nproc, f"phase 9 {tag}: a rank loaded jax or clair3_tpu")
+    return text
+
+
+def phase9_compare(a, b):
+    """Two runs' (history, state): the largest relative loss difference,
+    the largest parameter or statistic difference, the entries over 1e-5,
+    all entries, and whether both are equal bit for bit."""
+    import numpy as np
+
+    (ha, sa), (hb, sb) = a, b
+    check(np.array_equal(ha[:, :2], hb[:, :2]), f"phase 9: histories of other epochs {ha} {hb}")
+    loss = float((np.abs(ha[:, 2:] - hb[:, 2:]) / np.abs(hb[:, 2:])).max())
+    diffs = [np.abs(sa[k] - sb[k]) for k in sb]
+    bitwise = np.array_equal(ha, hb) and all(np.array_equal(sa[k], sb[k]) for k in sb)
+    return (loss, float(max(d.max() for d in diffs)), sum(int((d > 1e-5).sum()) for d in diffs),
+            sum(d.size for d in diffs), bitwise)
+
+
+def phase9_data_parallel(torch, work, smi):
+    """Data-parallel training on the card (`fit(..., data_parallel=True)`,
+    the path of `train --data_parallel`), every rank an OS process under
+    torchrun: one rank on NCCL against the plain single-device `fit` in
+    this process, then two gloo ranks sharing the card against the one
+    rank; and the one rank's step time beside the plain step's."""
+    import numpy as np
+
+    specs = {}
+    for name, kind, steps, n_chunks in (("pileup", "pileup", 3, 34), ("fa", "fa", 3, 17),
+                                        ("fa1", "fa", 1, 17)):
+        cfg = dict(PHASE9_NETS[kind], max_epoch=2)
+        chunk = cfg["chunk_size_" + kind]
+        data = os.path.join(work, f"p9_{kind}.npz")
+        if not os.path.exists(data):
+            # half a chunk of slack: every chunk is whole at any offset, so
+            # every batch splits over 2 ranks with no padding
+            x, y = phase9_rows(kind, n_chunks * chunk + chunk // 2, seed=11)
+            np.savez(data, x=x, y=y)
+        specs[name] = {"cfg": cfg, "steps": steps, "data": data,
+                       "out_dir": os.path.join(work, f"p9_{name}")}
+
+    # cuDNN's deterministic algorithms, as phase 7 trains, in every run
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = {name: phase9_fit(dict(spec, out_dir=spec["out_dir"] + "_plain"),
+                                  torch.device(DEVICE)) for name, spec in specs.items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = os.path.join(work, "p9")
+    t0 = time.time()
+    run_torchrun(work, "one", 1, {"device": DEVICE, "nets": specs, "out": out + "_one",
+                                  "time": True})
+    t1 = time.time()
+    two_specs = {k: specs[k] for k in ("pileup", "fa1")}
+    run_torchrun(work, "two", 2, {"device": DEVICE, "backend": "gloo", "nets": two_specs,
+                                  "out": out + "_two"})
+    print(f"[phase9] torchrun: one rank {t1 - t0:.2f} s, two ranks {time.time() - t1:.2f} s "
+          f"(spawn to exit, host clock)")
+
+    def load(path):
+        with np.load(path) as z:
+            return (z["history"], {k: z[k] for k in z.files if k not in (
+                "history", "on_card", "backend", "world")}), z["on_card"], str(z["backend"])
+
+    one = {}
+    for name in specs:
+        one[name], on_card, backend = load(f"{out}_one.{name}.0.npz")
+        check(bool(on_card), f"phase 9 one rank {name}: parameters off the card")
+        loss, par, over, total, bitwise = phase9_compare(one[name], plain[name])
+        print(f"[phase9] {name} ({specs[name]['steps']} steps): one rank ({backend}) vs the plain "
+              f"fit: losses max rel {loss:.3g}, parameters and statistics max |d| {par:.3g}, "
+              f"bit for bit equal: {bitwise}")
+        check(loss <= 1e-6 and par <= 1e-6, f"phase 9 one rank {name}: {loss} {par}")
+    for name in two_specs:
+        ranks = [load(f"{out}_two.{name}.{r}.npz") for r in range(2)]
+        check(all(bool(on) for _, on, _ in ranks), f"phase 9 two ranks {name}: off the card")
+        check(all(np.array_equal(ranks[1][0][1][k], ranks[0][0][1][k]) for k in ranks[0][0][1]),
+              f"phase 9 two ranks {name}: the ranks hold other nets")
+        got, ref = ranks[0][0], one[name]
+        loss, par, over, total, _ = phase9_compare(got, ref)
+        train_rel = float((np.abs(got[0][:, 2] - ref[0][:, 2]) / np.abs(ref[0][:, 2])).max())
+        val_rel = float((np.abs(got[0][:, 3] - ref[0][:, 3]) / np.abs(ref[0][:, 3])).max())
+        print(f"[phase9] {name} ({specs[name]['steps']} steps): two ranks ({ranks[0][2]}, one "
+              f"card) vs one rank: training loss max rel {train_rel:.3g}, validation loss "
+              f"{val_rel:.3g}; parameters and statistics max |d| {par:.3g}, {over} of {total} "
+              f"entries over 1e-5; the two ranks' nets equal bit for bit")
+        check(train_rel <= 1e-5, f"phase 9 two ranks {name}: training loss {train_rel}")
+        # AdamW moves an entry whose gradient is rounding noise by up to lr a step
+        check(par <= 2.01e-3 * specs[name]["steps"], f"phase 9 two ranks {name}: {par}")
+        if name == "pileup":
+            check(val_rel <= 1e-5 and over <= 1e-5 * total,
+                  f"phase 9 two ranks pileup: validation {val_rel}, {over} entries over 1e-5")
+        else:
+            stats = max(float(np.abs(got[1][k] - ref[1][k]).max()) for k in ref[1]
+                        if k.endswith((".mean", ".var")))
+            print(f"[phase9] fa1: BatchNorm running statistics max |d| {stats:.3g} (two ranks "
+                  f"vs one)")
+            check(stats <= 1e-6 and val_rel <= 1e-3,
+                  f"phase 9 two ranks fa1: statistics {stats}, validation {val_rel}")
+
+    with open(f"{out}_one.times.json") as fh:
+        times = json.load(fh)
+    def text(runs):
+        return "; ".join(f"{t['step_ms']:.3f} ms (forward + loss {t['forward_ms']:.3f}, backward "
+                         f"{t['backward_ms']:.3f}, AdamW {t['adamw_ms']:.3f})" for t in runs)
+
+    for name in ("pileup", "fa"):
+        p, d = times[f"{name} plain"], times[f"{name} ddp"]
+        p_ms, d_ms = (sum(t["step_ms"] for t in r) / len(r) for r in (p, d))
+        print(f"[phase9] {name} train step B={PHASE9_NETS[name]['batch_size']} f32 ({smi}), "
+              f"timed in turns plain, DDP, DDP, plain (each the median of 20 after 5 warm "
+              f"steps, CUDA events): plain {text(p)}; DDP, one rank on {backend}: {text(d)}; "
+              f"overhead {d_ms - p_ms:.3f} ms ({100 * (d_ms / p_ms - 1):.1f}%)")
+    return times
 
 
 def setup(work):
@@ -1589,7 +1966,9 @@ def main(argv=None) -> int:
             if 7 in phases:
                 phase7_training(torch, work)
             if 8 in phases:
-                phase8_multiprocess(torch, work, fasta, bam, smi)
+                phase8_multiprocess(torch, work, fasta, bam, variants, smi)
+            if 9 in phases:
+                phase9_data_parallel(torch, work, smi)
     finally:
         shutdown_decode_pool()
 

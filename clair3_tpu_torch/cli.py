@@ -46,14 +46,23 @@ it owns, the QUAL-quantile cutoffs come from every process's rows, and
 each contig is phased from every process's het SNPs, so the merged output
 is one process's.  Intermediate phasing runs in-process unless
 ``--use_{whatshap,longphase}_for_intermediate_phasing`` hands it to that
-binary.  Not yet ported (exit 1 with a message): ``train --data_parallel``
-(multi-process training).
+binary.  Known sites (``--vcf_fn``) are added back by the process that owns
+their chunk, and ``--use_phasing_for_final_output`` phases each contig from
+every process's final rows, haplotagging the BAM on process 0 only.
+
+``train --data_parallel`` trains on every rank of a process group, the JAX
+CLI's global mesh: under ``torchrun`` (NCCL on CUDA, gloo on the CPU),
+else one rank per visible GPU, else this process alone:
+
+    torchrun --nproc_per_node=<cards> -m clair3_tpu_torch train --bin_fn p.bin \
+        --output_dir m --pileup --data_parallel
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -537,8 +546,12 @@ def _run_call(args: argparse.Namespace, dist_id: int, dist_count: int) -> int:
 
             phaser = GatheredPhaser(phaser)
 
-    caller = VariantCaller(cfg, pileup_engine=pileup_engine,
-                           fa_engine=fa_engine, phaser=phaser)
+    caller_cls = VariantCaller
+    if dist_count > 1:
+        from clair3_tpu_torch.parallel.distributed import DistributedCaller
+
+        caller_cls = DistributedCaller
+    caller = caller_cls(cfg, pileup_engine=pileup_engine, fa_engine=fa_engine, phaser=phaser)
     if args.profile_dir:
         outputs = _profiled_run(caller, args.profile_dir, device)
     else:
@@ -623,16 +636,26 @@ def cmd_tensor2bin(args: argparse.Namespace) -> int:
 
 def cmd_train(args: argparse.Namespace) -> int:
     """Train a net from HDF5 bins on ``--device``; the counterpart of
-    ``clair3_tpu.cli.cmd_train`` without a mesh."""
+    ``clair3_tpu.cli.cmd_train``.  With ``--data_parallel`` every rank of a
+    data-parallel group (``parallel/mesh.py::run_ranks``: torchrun's ranks,
+    else one per visible GPU, else this process) trains on its share of
+    each batch, the counterpart of the JAX CLI's global mesh."""
+    device = resolve_device(args.device)
+    if args.data_parallel:
+        from clair3_tpu_torch.parallel.mesh import run_ranks
+
+        run_ranks(functools.partial(_train, args, data_parallel=True), device)
+    else:
+        _train(args, device)
+    return 0
+
+
+def _train(args: argparse.Namespace, device: torch.device, data_parallel: bool = False) -> None:
+    """``train`` on ``device``; with ``data_parallel``, as this process's
+    rank of the joined group (rank 0 reports)."""
     from clair3_tpu_torch.config import TrainConfig
     from clair3_tpu_torch.train.trainer import train_model
 
-    if args.data_parallel:
-        print("[ERROR] not yet ported to clair3_tpu_torch: --data_parallel "
-              "(multi-process training); use `python -m clair3_tpu train`",
-              file=sys.stderr)
-        return 1
-    device = resolve_device(args.device)
     init_variables = None
     if args.chkpnt_fn:
         from clair3_tpu_torch.models.params_io import load_variables
@@ -650,10 +673,13 @@ def cmd_train(args: argparse.Namespace) -> int:
     )
     result = train_model(args.bin_fn, args.output_dir, cfg,
                          init_variables=init_variables,
-                         use_class_weights=args.use_class_weights, device=device)
-    print(f"[INFO] best_val_loss={result['best_val_loss']:.4f} "
-          f"model={result['model_path']}")
-    return 0
+                         use_class_weights=args.use_class_weights, device=device,
+                         data_parallel=data_parallel)
+    import torch.distributed as dist
+
+    if not data_parallel or dist.get_rank() == 0:
+        print(f"[INFO] best_val_loss={result['best_val_loss']:.4f} "
+              f"model={result['model_path']}")
 
 
 def cmd_decode_probabilities(args: argparse.Namespace) -> int:
@@ -1046,7 +1072,9 @@ def main(argv=None) -> int:
     tr.add_argument("--mini_epochs", type=int, default=1)
     tr.add_argument("--seed", type=int, default=0)
     tr.add_argument("--data_parallel", action="store_true",
-                    help="not yet ported (exits 1): multi-process training")
+                    help="shard batches over all devices via a process group "
+                         "(torchrun --nproc_per_node=<cards>, else one rank per "
+                         "visible GPU)")
     tr.add_argument("--chkpnt_fn", default=None,
                     help="initial .npz checkpoint for fine-tuning/resume")
     tr.add_argument("--use_class_weights", action="store_true",

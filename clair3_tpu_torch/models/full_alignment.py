@@ -60,7 +60,15 @@ class BatchNorm(nn.Module):
     (``max(0, E[x^2] - E[x]^2)``, flax's fast variance) and moves the
     running statistics 10% of the way to them.  flax's momentum 0.9 is
     torch's 0.1, and torch's own BatchNorm keeps the unbiased variance, so
-    ``nn.BatchNorm2d`` is not this layer."""
+    ``nn.BatchNorm2d`` (or ``nn.SyncBatchNorm``) is not this layer.
+
+    With ``group`` set (``train/step.py::replicate`` sets it), ``x`` is
+    one rank's equal share of a global batch, and the batch statistics are
+    the global batch's, as under the JAX mesh: the per-channel ``E[x]`` and
+    ``E[x^2]`` are all-reduced in f32 over the group and divided by its
+    size, through the autograd-aware all-reduce, so the backward pass
+    crosses ranks too.  Every rank then moves its running statistics by
+    the same values."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -68,13 +76,20 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, meansq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            if self.group is not None:
+                import torch.distributed as dist
+                from torch.distributed.nn.functional import all_reduce
+
+                moments = all_reduce(torch.stack([mean, meansq]), group=self.group)
+                mean, meansq = moments / dist.get_world_size(self.group)
+            var = torch.clamp(meansq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)

@@ -38,11 +38,18 @@ class Dropout(nn.Module):
     the identity.  The mask is drawn from ``generator``, the counterpart of
     flax's ``rngs={"dropout": ...}``: a net in training mode called without
     one raises, so a net left in training mode at inference shows itself.
-    Holds no parameters."""
+    Holds no parameters.
+
+    ``shard = (rank, ranks)`` (``train/step.py::replicate`` sets it):
+    ``x`` is rank ``rank``'s slice of a global batch ``ranks`` times as
+    long.  The mask is drawn for the global batch and this rank keeps its
+    rows, so, as flax's mask is a function of the key and the global shape,
+    N ranks drop what one device drops on the whole batch."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.shard = (0, 1)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -51,7 +58,10 @@ class Dropout(nn.Module):
             raise ValueError("dropout in training mode needs a torch.Generator; "
                              "call .eval() on a net used for inference")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        rank, ranks = self.shard
+        n = x.shape[0]
+        mask = torch.rand((n * ranks,) + tuple(x.shape[1:]), generator=generator,
+                          device=x.device)[rank * n: (rank + 1) * n] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def extra_repr(self) -> str:

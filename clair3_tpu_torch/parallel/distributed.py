@@ -12,6 +12,10 @@ of ``clair3_tpu.parallel.distributed``, with the same function names.
 * ``GatheredPhaser`` phases each contig from every process's het SNPs, so
   that the reads near a chunk another process owns are haplotagged as one
   process would tag them (the reference phases whole contigs too).
+* ``DistributedCaller`` is ``VariantCaller`` for one process of the group:
+  it adds back only the known sites (``--vcf_fn``) of its own chunks, and
+  its final phasing phases each contig from every process's final rows,
+  writes its own rows and haplotags the BAM on process 0 only.
 
 The group carries only these host-side rows, so it is gloo's whatever
 ``--device`` the nets run on: several processes may share one GPU.
@@ -19,12 +23,16 @@ The group carries only these host-side rows, so it is gloo's whatever
 
 from __future__ import annotations
 
+import bisect
 import logging
+import os
 import time
 from datetime import timedelta
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from clair3_tpu_torch.pipeline.call import VariantCaller
 
 logger = logging.getLogger(__name__)
 
@@ -134,3 +142,72 @@ class GatheredPhaser:
                 raise ValueError(f"processes disagree on the het SNP at {ctg_name}:{rec.pos}: "
                                  f"{by_pos[rec.pos]} vs {rec}")
         return self.phaser.phase(ctg_name, [by_pos[p] for p in sorted(by_pos)])
+
+
+class DistributedCaller(VariantCaller):
+    """``VariantCaller`` for process ``cfg.dist_process_id`` of a group of
+    ``cfg.dist_process_count``: ``sort_vcf`` over the processes' outputs
+    gives one process's, in genotyping mode and with final phasing too.
+
+    * Genotyping mode (``--vcf_fn``): each process loads every known site,
+      and ``VariantCaller`` writes a ``./.`` row for each one it did not
+      call, including the sites of the chunks other processes call, which
+      ``sort_vcf`` may then keep over the called row.  Here a known site
+      belongs to the process that owns the chunk holding it (process 0
+      when no chunk holds it), and each process adds back its own sites.
+    * ``--use_phasing_for_final_output``: one collective gathers every
+      process's final rows, each contig is phased whole from them, and each
+      process writes its own rows, phased; only process 0 haplotags the BAM
+      (``--use_haplotagging_for_final_output``), from all the phased rows."""
+
+    def run_pileup(self, tasks):
+        # the chunks this process owns, and the contigs every process's
+        # chunks cover (plan_chunks covers 1..length), for the known sites
+        self._own_spans: Dict[str, List[Tuple[int, int]]] = {}
+        for t in tasks:
+            self._own_spans.setdefault(t.contig, []).append((t.start, t.end))
+        for spans in self._own_spans.values():
+            spans.sort()
+        self._lengths = dict(self._contigs)
+        return super().run_pileup(tasks)
+
+    def _owns_site(self, chrom: str, pos: int) -> bool:
+        spans = self._own_spans.get(chrom, [])
+        i = bisect.bisect_right(spans, (pos, float("inf"))) - 1
+        if i >= 0 and spans[i][0] <= pos <= spans[i][1]:
+            return True
+        held = 1 <= pos <= self._lengths.get(chrom, 0)
+        return not held and self.cfg.dist_process_id == 0
+
+    def _genotyping_add_back(self, rows: List[str]) -> List[str]:
+        if not self._known_records:
+            return rows
+        from clair3_tpu_torch.postprocess import add_back_missing_variants
+
+        own = [r for r in self._known_records if self._owns_site(r.chrom, r.pos)]
+        return add_back_missing_variants(own, rows)
+
+    def _final_phasing(self, final_rows, contig_names, outputs) -> None:
+        cfg = self.cfg
+        if not (cfg.use_phasing_for_final_output or cfg.use_haplotagging_for_final_output):
+            return
+        import torch.distributed as dist
+
+        from clair3_tpu_torch.phase.final_phasing import haplotag_bam, phase_final_rows
+
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, list(final_rows))
+        # every process's rows in one process's order: by contig, then
+        # position (the processes' chunks do not overlap)
+        rows = sorted((r for part in parts for r in part),
+                      key=lambda r: (r.split("\t", 1)[0], int(r.split("\t", 2)[1])))
+        phased = phase_final_rows(cfg.bam_fn, rows, contig_names)
+        phased_of = dict(zip(rows, phased))  # a row's phasing is a function of its row
+        path = os.path.join(cfg.output_dir, "phased_merge_output.vcf.gz")
+        self._write_vcf(path, [phased_of[r] for r in final_rows], None)
+        outputs["phased_merge_output"] = path
+        if cfg.use_haplotagging_for_final_output and cfg.dist_process_id == 0:
+            out_bam = os.path.join(cfg.output_dir, "phased_output.bam")
+            _, n = haplotag_bam(cfg.bam_fn, cfg.ref_fn, phased, out_bam, min_mq=cfg.min_mq)
+            logger.info("[haplotag] %d reads tagged -> %s", n, out_bam)
+            outputs["phased_output_bam"] = out_bam

@@ -5,10 +5,19 @@ weight decay), per-task focal loss, bin chunks assembled into batches, a
 random per-epoch chunk offset, mini-epoch subdivision, a 90/10 validation
 split, early stopping on validation loss, per-epoch checkpoints and
 ``best_val_loss.npz``.  Checkpoints are the JAX package's ``.npz`` trees
-(``models/bridge.py``), so either package loads the other's.  One device:
-the nets start from flax's initializers (``models/init.py``) drawn on the
-CPU from ``cfg.seed``, dropout draws from a generator on the device seeded
-from ``cfg.seed``, and every batch moves to the device for its step.
+(``models/bridge.py``), so either package loads the other's.  The nets
+start from flax's initializers (``models/init.py``) drawn on the CPU from
+``cfg.seed``, dropout draws from a generator on the device seeded from
+``cfg.seed``, and every batch moves to the device for its step.
+
+With ``data_parallel`` (the JAX trainer's ``mesh``) this process is one
+rank of the group ``parallel/mesh.py`` joined, and every rank runs this
+loop with the same seeds, so each holds the same net and walks the same
+chunks.  Each training and validation batch is padded to a multiple of the
+ranks with zero rows and zero labels (the JAX trainer's ``_pad_batch``),
+each rank takes its slice, the step is ``train/step.py::replicate``'s, and
+the losses are the means over the ranks.  Rank 0 alone writes the
+checkpoints while the others wait.
 """
 
 from __future__ import annotations
@@ -29,9 +38,11 @@ from clair3_tpu_torch.models import FullAlignmentNet, PileupNet
 from clair3_tpu_torch.models.bridge import from_jax_variables, to_jax_variables
 from clair3_tpu_torch.models.init import init_weights
 from clair3_tpu_torch.models.params_io import save_variables
+from clair3_tpu_torch.parallel.mesh import pad_to_multiple, shard_rows
 from clair3_tpu_torch.train.data import BinDataset
 from clair3_tpu_torch.train.loss import effective_class_weights
-from clair3_tpu_torch.train.step import batch_loss, make_optimizer, train_step
+from clair3_tpu_torch.train.step import (batch_loss, make_optimizer, mean_over_ranks,
+                                         replicate, train_step)
 
 logger = logging.getLogger(__name__)
 
@@ -78,13 +89,16 @@ def train_model(
     init_variables: Optional[dict] = None,
     use_class_weights: bool = False,
     device="cuda",
+    data_parallel: bool = False,
 ) -> dict:
-    """Train from HDF5 bins on ``device`` (``cuda`` raises without a GPU);
-    returns ``{'best_val_loss', 'epochs', 'model_path', 'history'}``."""
+    """Train from HDF5 bins on ``device`` (``cuda`` raises without a GPU),
+    as one rank of the joined group with ``data_parallel``; returns
+    ``{'best_val_loss', 'epochs', 'model_path', 'history'}``."""
     device = resolve_device(device)
     return fit(BinDataset(bin_paths, chunk_size=cfg.chunk_size), output_dir, cfg,
                max_steps=max_steps, init_variables=init_variables,
-               use_class_weights=use_class_weights, device=device)
+               use_class_weights=use_class_weights, device=device,
+               data_parallel=data_parallel)
 
 
 def fit(
@@ -95,10 +109,15 @@ def fit(
     init_variables: Optional[dict] = None,
     use_class_weights: bool = False,
     device: torch.device = torch.device("cpu"),
+    data_parallel: bool = False,
 ) -> dict:
     """``train_model``'s loop over ``dataset``, any object with
     ``BinDataset``'s ``chunks``, ``get_chunk``, ``batches`` and
-    ``split_chunks``, on ``device``, which the caller has resolved."""
+    ``split_chunks``, on ``device``, which the caller has resolved (this
+    rank's, with ``data_parallel``)."""
+    import torch.distributed as dist
+
+    rank, world = (dist.get_rank(), dist.get_world_size()) if data_parallel else (0, 1)
     os.makedirs(output_dir, exist_ok=True)
     if not dataset.chunks:
         raise ValueError("no training chunks found in bins")
@@ -112,19 +131,24 @@ def fit(
     if init_variables is not None:
         _load_init_variables(net, init_variables)
     net.to(device)
+    model = replicate(net, device) if data_parallel else net
     opt = make_optimizer(net, cfg.learning_rate, cfg.weight_decay)
     dropout = torch.Generator(device=device).manual_seed(cfg.seed)
     task_class_weights = _class_weights(dataset, device) if use_class_weights else None
 
     def on_device(x, y):
+        """This rank's rows of the batch, on the device."""
+        if data_parallel:
+            x, y = (shard_rows(pad_to_multiple(a, world)[0], rank, world) for a in (x, y))
         return (torch.from_numpy(np.ascontiguousarray(x)).to(device),
                 torch.from_numpy(np.ascontiguousarray(y)).to(device))
 
     @torch.no_grad()
     def eval_loss(x, y):
         net.eval()
-        return float(batch_loss(net, *on_device(x, y), None, cfg.add_indel_length,
-                                cfg.focal_gamma, task_class_weights))
+        loss = batch_loss(net, *on_device(x, y), None, cfg.add_indel_length,
+                          cfg.focal_gamma, task_class_weights)
+        return float(mean_over_ranks(loss) if data_parallel else loss)
 
     chunks_per_batch = max(1, cfg.batch_size // cfg.chunk_size)
     py_rng = random.Random(cfg.seed)
@@ -151,7 +175,7 @@ def fit(
                 order[mini_epoch * mini: (mini_epoch + 1) * mini],
                 chunks_per_batch, offset,
             ):
-                epoch_loss += train_step(net, opt, *on_device(x, y), dropout,
+                epoch_loss += train_step(model, opt, *on_device(x, y), dropout,
                                          cfg.add_indel_length, cfg.focal_gamma,
                                          task_class_weights)
                 n_batches += 1
@@ -169,12 +193,19 @@ def fit(
             logger.info("[train] epoch %d.%d loss=%.4f val=%.4f (%.1fs)",
                         epoch, mini_epoch, train_loss, val_loss, time.time() - t0)
 
-            variables = to_jax_variables(net.state_dict())
-            save_variables(os.path.join(output_dir, f"epoch_{epoch}_{mini_epoch}.npz"), variables)
-            if val_loss < best_val:
+            # the losses are equal on every rank, so every rank decides alike
+            improved = val_loss < best_val
+            if rank == 0:
+                variables = to_jax_variables(net.state_dict())
+                save_variables(os.path.join(output_dir, f"epoch_{epoch}_{mini_epoch}.npz"),
+                               variables)
+                if improved:
+                    save_variables(best_path, variables)
+            if data_parallel:
+                dist.barrier()
+            if improved:
                 best_val = val_loss
                 bad_epochs = 0
-                save_variables(best_path, variables)
             else:
                 bad_epochs += 1
             if bad_epochs >= patience:

@@ -360,14 +360,6 @@ def test_train_then_call_on_the_cpu(tmp_path, verify_case, capsys):
     assert rows
 
 
-def test_train_data_parallel_exits_1(tmp_path, capsys):
-    argv = ["train", "--bin_fn", str(tmp_path / "missing.bin"), "--output_dir",
-            str(tmp_path / "out"), "--data_parallel", "--device", "cpu"]
-    assert main(argv) == 1
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "multi-process training" in err
-
-
 def test_train_without_a_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible here")

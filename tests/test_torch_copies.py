@@ -142,6 +142,8 @@ DEFINITIONS = {
     "train/loss.py": ("clair3_tpu/train/loss.py", ["effective_class_weights"], {}),
     # convert.py's main writes .npz through the JAX package's save_variables
     "models/params_io.py": ("clair3_tpu/models/params_io.py", ["save_variables"], {}),
+    # the mesh itself is a torch.distributed process group here
+    "parallel/mesh.py": ("clair3_tpu/parallel/mesh.py", ["pad_to_multiple"], {}),
     "testing.py": ("clair3_tpu/testing.py", [
         "BASES", "_FA_BASE_FROM_VAL", "SimVariant", "random_reference",
         "_read_from_reference", "simulate_reads", "write_test_case", "PileupOracleEngine",
@@ -225,7 +227,7 @@ def test_copied_definitions_equal_originals(key):
 
 
 # the parsers of the JAX CLI's main(), as blocks of the port's main();
-# `train` says --data_parallel is not ported and adds --device
+# `train` names the process group behind --data_parallel and adds --device
 PARSER_BLOCKS = {
     "sort_vcf..decode_probabilities": (
         '    sv = sub.add_parser("sort_vcf"',
@@ -238,7 +240,9 @@ PARSER_BLOCKS = {
                    []),
     "train": ('    tr = sub.add_parser("train"', '    tr.set_defaults(func=cmd_train)\n', [
         ('                    help="shard batches over all devices via a Mesh")\n',
-         '                    help="not yet ported (exits 1): multi-process training")\n'),
+         '                    help="shard batches over all devices via a process group "\n'
+         '                         "(torchrun --nproc_per_node=<cards>, else one rank per "\n'
+         '                         "visible GPU)")\n'),
         ('    tr.set_defaults(func=cmd_train)\n',
          '    tr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),\n'
          '                    help="device of the trained net; cuda raises when no GPU "\n'

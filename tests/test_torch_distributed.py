@@ -16,6 +16,16 @@
   --gvcf`` over their gVCFs give one port process's merged VCF and gVCF,
   full text and header included, and the rows are those of one JAX process
   within ``vcf_rows_numerically_equivalent`` with no routing flip.
+* Genotyping mode under ``--dist_*`` (2 processes, the 24 kb case with a
+  ``--vcf_fn`` of its simulated variants): the merged VCF and gVCF are one
+  process's, byte for byte, and, as there, no known site is added back as
+  a ``./.`` row (each process adds back only the known sites of its own
+  chunks).
+* ``--use_phasing_for_final_output --use_haplotagging_for_final_output``
+  under ``--dist_*`` (2 processes, the 30 kb seed-91 case): the merged
+  ``phased_merge_output.vcf.gz`` is one process's, byte for byte (each
+  contig phased whole), process 0's ``phased_output.bam`` carries one
+  process's ``HP``/``PS`` tags on every read, and process 1 writes no BAM.
 
 Child processes write to files, not pipes, and every wait has a timeout.
 """
@@ -77,6 +87,35 @@ def test_own_tasks_disjoint_cover():
     assert sorted(t for p in parts for t in p) == tasks
     assert all(len(p) in (4, 5) for p in parts)
     assert own_tasks(tasks, 0, 1) == tasks
+
+
+def test_known_sites_have_one_owner():
+    """Genotyping mode's add-back: each known site is added back by exactly
+    one of 3 processes, the owner of the chunk holding it; a site that no
+    chunk holds (past a contig's end, or on a contig not called) by
+    process 0."""
+    from types import SimpleNamespace
+
+    from clair3_tpu_torch.parallel.distributed import DistributedCaller
+    from clair3_tpu_torch.pipeline.call import plan_chunks
+
+    contigs = [("chr1", 2500), ("chr2", 900)]
+    tasks = plan_chunks(contigs, 400)
+    callers = []
+    for p in range(3):
+        c = DistributedCaller.__new__(DistributedCaller)
+        c.cfg, c._contigs = SimpleNamespace(dist_process_id=p), contigs
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr("clair3_tpu_torch.pipeline.call.VariantCaller.run_pileup",
+                       lambda self, t: [])
+            c.run_pileup(own_tasks(tasks, p, 3))
+        callers.append(c)
+    sites = [("chr1", pos) for pos in range(0, 2503)] + [("chr2", pos) for pos in (1, 900, 901)]
+    sites.append(("chr3", 5))
+    for chrom, pos in sites:
+        owners = [p for p, c in enumerate(callers) if c._owns_site(chrom, pos)]
+        held = [i for i, t in enumerate(tasks) if t.contig == chrom and t.start <= pos <= t.end]
+        assert owners == ([held[0] % 3] if held else [0]), (chrom, pos, owners)
 
 
 GATHER_WORKER = textwrap.dedent("""
@@ -180,7 +219,7 @@ def _seed93_case(tmp):
             variants.append(SimVariant(p, ref[p:p + 2], ref[p], (0, 1)))
     fasta, bam, _, _ = write_test_case(str(tmp), ref_length=L, variants=variants, coverage=20,
                                        read_length=900, seed=93, error_rate=0.02)
-    return fasta, bam, ["--chunk_size", "6000"]
+    return fasta, bam, variants, ["--chunk_size", "6000"]
 
 
 def _seed91_case(tmp):
@@ -188,9 +227,9 @@ def _seed91_case(tmp):
     chunks, with the routing of the trained-fixture cascade: full-alignment
     candidates near a chunk edge are phased with het SNPs of the
     neighbouring chunk, which another process owns."""
-    fasta, bam, _, _ = simulate(str(tmp), 30_000, seed=91)
-    return fasta, bam, ["--chunk_size", "7500", "--indel_min_af", "0.12",
-                        "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
+    fasta, bam, _, variants = simulate(str(tmp), 30_000, seed=91)
+    return fasta, bam, variants, ["--chunk_size", "7500", "--indel_min_af", "0.12",
+                                  "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
 
 
 @pytest.fixture(scope="module", params=["seed93", "seed91"])
@@ -202,7 +241,8 @@ def case(request, tmp_path_factory):
     from clair3_tpu.cli import main as jax_main
 
     tmp = tmp_path_factory.mktemp(f"dist_cli_{request.param}")
-    fasta, bam, extra = {"seed93": _seed93_case, "seed91": _seed91_case}[request.param](tmp)
+    fasta, bam, variants, extra = {"seed93": _seed93_case,
+                                   "seed91": _seed91_case}[request.param](tmp)
     args = ["--bam_fn", bam, "--ref_fn", fasta, *NETS, *extra]
     single = tmp / "single"
     p = _spawn(["-m", "clair3_tpu_torch", "call", *args, "--device", "cpu",
@@ -212,7 +252,8 @@ def case(request, tmp_path_factory):
                    functools.partial(jax_engine.InferenceEngine, buckets=(256, 1024)))
         assert jax_main(["call", *args, "--output_dir", str(tmp / "jax")]) == 0
     _wait_all([p], [str(tmp / "single.log")], "single-process port call")
-    return {"fasta": fasta, "args": args, "single": single, "jax": tmp / "jax"}
+    return {"fasta": fasta, "bam": bam, "variants": variants, "args": args, "single": single,
+            "jax": tmp / "jax"}
 
 
 @pytest.mark.parametrize("n_procs", [2, 4])
@@ -247,3 +288,76 @@ def test_dist_cli_os_processes_merge_identically(case, tmp_path, n_procs):
         ok, stats = vcf_rows_numerically_equivalent(_rows(case["jax"] / name), rows,
                                                     flip_budget=0.0)
         assert ok, (name, stats["violations"])
+
+
+def _single_and_pair(case, tmp_path, *extra):
+    """One port process and a pair of ``--dist_*`` processes, all started
+    together, with ``extra`` arguments; returns their output directories."""
+    port = _free_port()
+    single, dist_dir = tmp_path / "single", tmp_path / "dist"
+    argvs = [["--output_dir", str(single)]] + [
+        ["--output_dir", str(dist_dir), "--dist_coordinator", f"127.0.0.1:{port}",
+         "--dist_num_processes", "2", "--dist_process_id", str(i)] for i in range(2)]
+    logs = [str(tmp_path / f"run{i}.log") for i in range(3)]
+    procs = [_spawn(["-m", "clair3_tpu_torch", "call", *case["args"], "--device", "cpu",
+                     *extra, *argv], log, tmp_path) for argv, log in zip(argvs, logs)]
+    _wait_all(procs, logs, "call")
+    return single, [dist_dir / f"proc{i}" for i in range(2)]
+
+
+def _merged_text(case, tmp_path, shards, name, *extra):
+    out = str(tmp_path / f"merged_{name}")
+    assert port_main(["sort_vcf", "--input_fn", *map(str, shards), "--output_fn", out,
+                      "--ref_fn", case["fasta"], *extra]) == 0
+    return _text(out)
+
+
+def _added_back_rows(text):
+    """Genotyping mode's rows for a known site that was not called."""
+    return [r for r in text.splitlines()
+            if not r.startswith("#") and r.split("\t")[4] == "." and r.endswith("\t./.")]
+
+
+@pytest.mark.parametrize("case", ["seed93"], indirect=True)
+def test_dist_genotyping_adds_back_only_own_sites(case, tmp_path):
+    from clair3_tpu_torch.io.vcf import VcfRecord, VcfWriter, get_header
+
+    known = str(tmp_path / "known.vcf")
+    with VcfWriter(known, get_header(contigs=[("chr1", 24_000)])) as w:
+        for v in case["variants"]:
+            w.write(VcfRecord("chr1", v.pos + 1, v.ref, v.alt, 60, "PASS", ".", "GT",
+                              "1/1" if v.genotype == (1, 1) else "0/1"))
+    single, procs = _single_and_pair(case, tmp_path, "--vcf_fn", known)
+    for name, extra in (("merge_output.vcf.gz", []), ("merge_output.gvcf.gz", ["--gvcf"])):
+        want = _text(single / name)
+        merged = _merged_text(case, tmp_path, [p / name for p in procs], name, *extra)
+        print(f"[dist] genotyping {name}: {len(_rows(single / name))} rows, ./. rows added "
+              f"back: single {len(_added_back_rows(want))}, merged "
+              f"{len(_added_back_rows(merged))}")
+        assert merged == want, name
+        assert not _added_back_rows(want), name
+    assert len(_rows(single / "merge_output.vcf.gz")) == len(case["variants"])
+
+
+def _tags(bam):
+    from clair3_tpu_torch.io.bam import BamReader
+
+    return sorted((r.qname, r.flag, r.pos, r.tags.get("HP"), r.tags.get("PS"))
+                  for r in BamReader(str(bam)))
+
+
+@pytest.mark.parametrize("case", ["seed91"], indirect=True)
+def test_dist_final_phasing_phases_whole_contigs(case, tmp_path):
+    single, procs = _single_and_pair(case, tmp_path, "--use_phasing_for_final_output",
+                                     "--use_haplotagging_for_final_output")
+    name = "phased_merge_output.vcf.gz"
+    want = _text(single / name)
+    merged = _merged_text(case, tmp_path, [p / name for p in procs], name)
+    sets = {r.split("\t")[9].split(":")[-1] for r in want.splitlines()
+            if not r.startswith("#") and "|" in r.split("\t")[9]}
+    print(f"[dist] final phasing: {len(_rows(single / name))} rows, phase sets {sorted(sets)}")
+    assert sets and merged == want
+    assert not (procs[1] / "phased_output.bam").exists()
+    want_tags = _tags(single / "phased_output.bam")
+    assert any(t[3] for t in want_tags)
+    assert _tags(procs[0] / "phased_output.bam") == want_tags

@@ -6,7 +6,8 @@ they are importable (a GPU host may have jax installed; the port must
 still not load it).  With them refused, `train --device cpu` trains a net
 from a bin, and `python -m clair3_tpu_torch.full_cascade_demo` runs end to
 end at a tiny scale.  The refusal matches the top-level name exactly, so
-`clair3_tpu_torch` itself loads.  With them refused, the same call also
+`clair3_tpu_torch` itself loads.  `train --data_parallel` runs so too, as the
+one rank of a group of one.  With them refused, the same call also
 runs from the reference's `.pt` files (`models/convert.py`,
 `models/schema.py`), as a `--remote_engines` client of a port server
 (`serve.py`) and as two `--dist_*` processes that gather their rows, and
@@ -135,7 +136,7 @@ def _refused_run(tmp_path, *argv, env=None):
     return proc
 
 
-def test_train_runs_without_jax(tmp_path):
+def _train_bin(tmp_path):
     import numpy as np
 
     from clair3_tpu_torch.config import LABEL_SIZE
@@ -148,8 +149,22 @@ def test_train_runs_without_jax(tmp_path):
     labels[np.arange(n), 21 + np.arange(n) % 3] = 1.0
     write_bin(str(tmp_path / "p.bin"), random_counts(1, (n, 33, 18)), labels,
               [f"chr1:{i + 1}:A" for i in range(n)], ["" for _ in range(n)])
-    proc = _refused_run(tmp_path, "train", "--bin_fn", str(tmp_path / "p.bin"), "--output_dir",
+    return str(tmp_path / "p.bin")
+
+
+def test_train_runs_without_jax(tmp_path):
+    proc = _refused_run(tmp_path, "train", "--bin_fn", _train_bin(tmp_path), "--output_dir",
                         str(tmp_path / "m"), "--pileup", "--max_epoch", "1", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert os.path.exists(tmp_path / "m" / "best_val_loss.npz")
+
+
+def test_train_data_parallel_runs_without_jax(tmp_path):
+    """One rank: the group of one this process forms (`parallel/mesh.py`)
+    and the step's `DistributedDataParallel`."""
+    proc = _refused_run(tmp_path, "train", "--bin_fn", _train_bin(tmp_path), "--output_dir",
+                        str(tmp_path / "m"), "--pileup", "--max_epoch", "1", "--device", "cpu",
+                        "--data_parallel")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert os.path.exists(tmp_path / "m" / "best_val_loss.npz")
 

@@ -72,6 +72,15 @@ def test_train_model_matches_jax(tmp_path, tiny_bin, init_variables, monkeypatch
         m.setattr(Dropout, "forward", lambda self, x, generator: x)
         got = train_model([tiny_bin], str(tmp_path / "port"), _cfg(), max_steps=4,
                           init_variables=init_variables, device="cpu")
+    check_trained_like_jax(got, want)
+
+
+def check_trained_like_jax(got, want, unit_past=False, p_tol=1e-5):
+    """The port trainer's result ``got`` against the JAX trainer's ``want``
+    (both ``{'history', 'epochs', 'best_val_loss', 'model_path'}``), within
+    the bounds of the module's docstring; with ``unit_past``, a leaf may
+    have one unit's fan-in (its first dimension) of entries past 1e-4, and
+    ``p_tol`` bounds the two trained nets' probabilities."""
     print(f"[trainer] history jax {want['history']}\n[trainer] history port {got['history']}")
     assert len(got["history"]) == len(want["history"]) == 2
     for g, w in zip(got["history"], want["history"]):
@@ -90,7 +99,7 @@ def test_train_model_matches_jax(tmp_path, tiny_bin, init_variables, monkeypatch
         # within 1e-4 but for at most a 1e-5 share of a leaf: Adam's steps
         # (lr * m / (sqrt(v) + 1e-8)) turn the f32 noise of a gradient near 0
         # into up to lr a step, so such an entry may part by up to 2 lr a step
-        assert over[k] <= int(1e-5 * d.size), (k, over[k])
+        assert over[k] <= max(int(1e-5 * d.size), d.shape[0] if unit_past else 0), (k, over[k])
         assert d.max() <= 4 * 2 * 1e-3, k
 
     x = random_counts(8, (16, 33, 18))
@@ -107,7 +116,7 @@ def test_train_model_matches_jax(tmp_path, tiny_bin, init_variables, monkeypatch
     assert err <= 1e-5
     # the entries let past 1e-4 above may not move the function: the two
     # trained nets within the forward-parity bound of an untrained pair
-    assert trained_err <= 1e-5
+    assert trained_err <= p_tol
 
 
 def test_dropout_runs_follow_the_seed(tmp_path, tiny_bin):
