@@ -188,7 +188,40 @@ Phase 9  data-parallel training (`fit(..., data_parallel=True)`, the path of
          rank's parameters on the card, and no rank loaded jax or
          clair3_tpu.  Two ranks sharing one card give no speed figure.
 
-With --phases (a comma-separated subset of 1-9) only those phases run (the
+Phase 10 the port's soak (clair3_tpu_torch/wgs_scale_demo.py) with the
+         committed hifi pair, on input simulated from the fixtures' manifest
+         (tests/fixtures/trained/manifest.json: 25x, 900 bp reads, 2%
+         error), simulated by the script's build_input in a process started
+         right after phase 1, beside phases 2-9 (its walls printed).  First
+         the parity slice (one 1 Mb contig, seed 23, the script's calling
+         configuration), called by the f32 CPU twin
+         (testing.TorchCpuEngine, on this host's CPU), then on the card at
+         f32 (TF32 off) and at bf16, each card run with its kernel counts
+         set to 0 just before it and read just after.  Checks: f32 rows
+         against the twin's within vcf_rows_numerically_equivalent, flip
+         budget 0; bf16 rows against the twin's with every discrete field
+         equal on every same-route row (the script's structural check, its
+         flip budget 0.005), at most 1% of rows changing call or P/F source
+         and QUAL moving < 1.5 on pileup-decided rows (the bf16-vs-f32 bound
+         of phase 3); the script's own qual_tol of 1.0 and the largest QUAL
+         move on FA-decided rows are printed.  Then the soak itself, as a
+         user runs it: `python -m clair3_tpu_torch.wgs_scale_demo --engines
+         production --reuse_input` in an OS process of its own, bf16 on the
+         card, gVCF on, over 12 Mb in 2 contigs, each longer than one 5 Mb
+         chunk.  Every gate of the script holds: site recall >= 0.95, SNP
+         F1 >= 0.95, INDEL F1 >= 0.90, contig-ordered output with a .tbi, 0
+         gVCF violations, and peak RSS <= --max_rss_gb, set to the script's
+         default 8 GB above the peak RSS of the torch/CUDA runtime alone
+         (import torch, a CUDA context, one cuDNN convolution, in a process
+         of its own: ~5.6 GB on the card host).  L1,
+         L2 and L3 launch equally often and above 0, the SIMT kernel never,
+         no plain pileup forward runs on the card, and the process loads
+         nothing of jax or clair3_tpu.  Prints the simulation and calling
+         walls, Mb/min, the stage times, peak RSS, the BAM's size, truth
+         sites, recall, F1, the validator's counts and K1's launches per Mb,
+         each beside the card's name and power limit.
+
+With --phases (a comma-separated subset of 1-10) only those phases run (the
 kernels are built in any case) and the script ends without the kernels'
 record and the ok line.  Otherwise the line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
@@ -201,6 +234,7 @@ import json
 import logging
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -229,7 +263,7 @@ EVAL_SEED = 91
 GATE_SNP_F1 = 0.990
 GATE_INDEL_F1 = 0.992
 DEVICE = "cuda"
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
 CALL_ARGS = ["--platform", "hifi", "--indel_min_af", "0.12", "--threads", "4",
              "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
 # the ONT region and gates of tests/test_trained_fixture_cascade.py
@@ -1393,15 +1427,22 @@ sys.exit(rc)
 PHASE8_TIMEOUT_S = 600
 
 
-def spawn_child(work, tag, target, args):
+def spawn_child(work, tag, target, args, own_peak_rss=False):
     """``target`` (a module or a script) with ``args`` in an OS process of
     its own, its output to ``{work}/{tag}.log``; returns (process, log
-    path, start time)."""
+    path, start time).  A process exec'd straight from this one reports
+    this process's peak RSS as its own (Linux keeps the larger across
+    exec); with ``own_peak_rss`` a shell forks it, so its peak RSS is its
+    own, as when a user starts it; the shell then leads a process group
+    of its own, so ``os.killpg`` stops both."""
     log_path = os.path.join(work, f"{tag}.log")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    argv = [sys.executable, "-c", PHASE8_CHILD, target, *args]
+    if own_peak_rss:
+        argv = ["bash", "-c", '"$@"; exit $?', "child", *argv]
     with open(log_path, "w") as log:
-        proc = subprocess.Popen([sys.executable, "-c", PHASE8_CHILD, target, *args],
-                                stdout=log, stderr=subprocess.STDOUT, env=env)
+        proc = subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT, env=env,
+                                start_new_session=own_peak_rss)
     return proc, log_path, time.time()
 
 
@@ -1728,8 +1769,6 @@ def run_torchrun(work, tag, nproc, args):
     """PHASE9_RANK on ``nproc`` ranks under ``python -m torch.distributed.run
     --standalone`` (its own session, killed whole at the time limit);
     returns its log."""
-    import signal
-
     script = os.path.join(work, "phase9_rank.py")
     with open(script, "w") as fh:
         fh.write(PHASE9_RANK)
@@ -1866,6 +1905,219 @@ def phase9_data_parallel(torch, work, smi):
     return times
 
 
+# phase 10: the parity slice's and the soak's sizes; each soak contig is
+# longer than CallConfig's 5 Mb chunk, so it is cut into two chunks
+PARITY_MB = 1.0
+SOAK_MB = 12.0
+SOAK_CONTIGS = 2
+SOAK_THREADS = 4
+SOAK_TIMEOUT_S = 600
+# the soak's memory budget: the JAX script's default --max_rss_gb (8 GB,
+# set for a JAX process) above what the torch/CUDA runtime alone holds
+# resident in a process of its own on this host (RUNTIME_RSS)
+SOAK_RSS_BUDGET_GB = 8.0
+RUNTIME_RSS = """
+import resource
+
+import torch
+
+x = torch.zeros(8, 8, 55, 33, device="cuda")
+torch.nn.functional.conv2d(x, torch.zeros(64, 8, 3, 3, device="cuda"), stride=2, padding=1)
+torch.cuda.synchronize()
+print(f"RUNTIME_PEAK_RSS_GB={resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6}")
+"""
+# phase 10's inputs, simulated by the soak's own build_input in a process
+# started right after the build, beside phases 2-9 (one core of the host):
+# the parity slice (seed 23, one contig) and the soak's genome (seed 7)
+SOAK_INPUTS = """
+import json
+import sys
+import time
+
+from clair3_tpu_torch.wgs_scale_demo import build_input
+
+for spec in json.loads(sys.argv[1]):
+    t0 = time.time()
+    build_input(*spec)
+    print(f"BUILT {spec[1]} Mb in {time.time() - t0:.2f} s", flush=True)
+"""
+SOAK_INPUTS_TIMEOUT_S = 900
+
+
+def soak_input_specs(work):
+    """build_input's arguments for the parity slice and the soak, with the
+    fixtures' simulator settings (manifest.json: coverage, read length,
+    error rate)."""
+    from clair3_tpu_torch.testing import trained_fixture_path
+
+    with open(trained_fixture_path("manifest.json")) as fh:
+        sim = json.load(fh)["simulator"]
+    reads = (sim["coverage"], sim["read_length"], sim["error_rate"])
+    return [[os.path.join(work, "soak_parity"), PARITY_MB, 1, *reads, 23],
+            [os.path.join(work, "soak"), SOAK_MB, SOAK_CONTIGS, *reads, 7]]
+
+
+def start_soak_inputs(work):
+    """The simulation of phase 10's inputs, in a process group of its own;
+    returns (process, log path, start time)."""
+    specs = soak_input_specs(work)
+    for spec in specs:
+        os.makedirs(spec[0])
+    log_path = os.path.join(work, "soak_inputs.log")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", SOAK_INPUTS, json.dumps(specs)],
+                                stdout=log, stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+    return proc, log_path, time.time()
+
+
+def stop(proc):
+    """Kill ``proc``'s process group if it still runs."""
+    if proc is not None and proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def soak_parity_slice(torch, spec, smi):
+    """The soak's parity slice on its built input (``spec``: build_input's
+    arguments): the f32 CPU twin, then the card at f32 and at bf16."""
+    from clair3_tpu_torch import wgs_scale_demo as soak
+    from clair3_tpu_torch.pipeline.call import VariantCaller
+    from clair3_tpu_torch.testing import trained_fixture_path, vcf_rows_numerically_equivalent
+
+    d = spec[0]
+    models = (trained_fixture_path("pileup_hifi.npz"), trained_fixture_path("fa_hifi.npz"))
+    args = argparse.Namespace(platform="hifi", threads=SOAK_THREADS)
+    # the truth list again from the seed; the reads were simulated beforehand
+    fasta, bam, _, truth = soak.build_input(*spec, reuse=True)
+    print(f"[phase10] parity slice: {PARITY_MB} Mb x {spec[3]}x, {len(truth)} variants")
+    outs, rows = {}, {}
+    for label in ("cpu_twin", "fp32", "bf16"):
+        if label == "cpu_twin":
+            engines = soak.build_cpu_twin_engines(*models)
+        else:
+            engines = soak.build_production_engines(*models, DEVICE, label)
+        outs[label] = os.path.join(d, label)
+        cfg = soak.production_config(args, fasta, bam, outs[label])
+        zero_kernel_counts()
+        t0 = time.time()
+        outputs = VariantCaller(cfg, pileup_engine=engines[0], fa_engine=engines[1]).run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        r = kernel_counts()
+        rows[label] = soak._vcf_body(outputs["merge_output"])
+        where = "this host's CPU" if label == "cpu_twin" else smi
+        print(f"[phase10] parity {label}: wall {wall:.2f} s ({where}), "
+              f"{len(rows[label])} merged rows, pileup kernel calls {r['calls']} "
+              f"(launches {r['kernels']}), plain pileup forwards on the card {r['plain']}")
+        if label == "cpu_twin":
+            check(r["calls"] == 0 and r["plain"] == 0, f"phase 10 twin: counts {r}")
+        else:
+            check_pileup_route(torch, f"phase 10 parity {label}", r, label)
+    check(len(rows["cpu_twin"]) > 50, "phase 10: too few parity rows")
+    ok, st = vcf_rows_numerically_equivalent(rows["fp32"], rows["cpu_twin"], flip_budget=0.0)
+    print(f"[phase10] parity f32 card vs f32 CPU twin: "
+          f"{len(set(rows['fp32']) & set(rows['cpu_twin']))}/{len(rows['cpu_twin'])} rows "
+          f"byte-identical; max dQUAL {st['max_dqual']:.2f}, dGQ {st['max_dgq']}, dPL "
+          f"{st['max_dpl']}, flips {st['flips']}")
+    check(ok, f"phase 10 parity f32: {st['violations'][:5]}")
+    script_ok, script = vcf_rows_numerically_equivalent(rows["bf16"], rows["cpu_twin"],
+                                                        qual_tol=1.0, flip_budget=0.005)
+    ok, st = vcf_rows_numerically_equivalent(rows["bf16"], rows["cpu_twin"], qual_tol=float("inf"),
+                                             gq_tol=1 << 30, pl_tol=1 << 30, flip_budget=0.005)
+    changed, n, dq = rows_changed(outs["cpu_twin"], outs["bf16"], "merge_output.vcf.gz")
+    print(f"[phase10] parity bf16 card vs f32 CPU twin: discrete fields equal on every "
+          f"same-route row: {ok} ({st['flips']} routing flips); {len(changed)}/{n} rows changed "
+          f"call or source; max QUAL delta {dq['P']:.2f} on pileup-decided rows, {dq['F']:.2f} "
+          f"on FA-decided rows; the script's check (qual_tol 1.0, flip budget 0.005): "
+          f"{'met' if script_ok else 'missed'}, max dQUAL {script['max_dqual']:.2f}, "
+          f"dGQ {script['max_dgq']}, dPL {script['max_dpl']}")
+    check(ok, f"phase 10 parity bf16, discrete fields: {st['violations'][:5]}")
+    check(len(changed) <= max(1, n // 100), f"phase 10 parity bf16: {len(changed)} rows changed")
+    check(dq["P"] < 1.5, f"phase 10 parity bf16: QUAL delta {dq['P']} on pileup rows")
+
+
+def phase10_soak(torch, work, smi, inputs):
+    """The parity slice, then the soak in an OS process of its own, both
+    on the inputs that ``inputs`` (start_soak_inputs) simulated."""
+    t_phase = time.time()
+    proc, log_path, t0 = inputs
+    try:
+        proc.wait(timeout=max(1.0, t0 + SOAK_INPUTS_TIMEOUT_S - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop(proc)
+    log = open(log_path).read()
+    check(proc.returncode == 0, f"phase 10 input simulation exited {proc.returncode}:\n"
+          f"{log[-4000:]}")
+    walls = [float(w) for w in re.findall(r"^BUILT \S+ Mb in ([0-9.]+) s$", log, re.M)]
+    specs = soak_input_specs(work)
+    for spec, wall in zip(specs, walls):
+        print(f"[phase10] simulated {spec[1]} Mb over {spec[2]} contig(s) x {spec[3]}x, "
+              f"{spec[4]} bp reads, {spec[5]} error (seed {spec[6]}) in {wall:.2f} s, "
+              f"{spec[1] * 1e3 / wall:.2f} kb/s (host clock, one core, beside phases 2-9; {smi})")
+    print(f"[phase10] waited {time.time() - t_phase:.2f} s for the input simulation")
+    soak_parity_slice(torch, specs[0], smi)
+    # a shell forks the probe, so its peak RSS is its own (see spawn_child)
+    probe = subprocess.run(["bash", "-c", '"$@"; exit $?', "probe", sys.executable, "-c",
+                            RUNTIME_RSS], capture_output=True, text=True, timeout=300)
+    check(probe.returncode == 0, f"phase 10 runtime probe: {probe.stderr[-2000:]}")
+    runtime_gb = float(probe.stdout.split("RUNTIME_PEAK_RSS_GB=")[1].split()[0])
+    max_rss_gb = round(runtime_gb + SOAK_RSS_BUDGET_GB, 2)
+    print(f"[phase10] the torch/CUDA runtime alone (import torch, a CUDA context, one cuDNN "
+          f"convolution) holds {runtime_gb:.2f} GB resident at its peak; the soak runs with "
+          f"--max_rss_gb {max_rss_gb} (the script's default {SOAK_RSS_BUDGET_GB} GB above it; "
+          f"{smi})")
+    out, mb, contigs, coverage, read_length, error_rate, _ = specs[1]
+    args = ["--engines", "production", "--platform", "hifi", "--mbases", str(mb),
+            "--contigs", str(contigs), "--coverage", str(coverage),
+            "--read_length", str(read_length), "--error_rate", str(error_rate),
+            "--threads", str(SOAK_THREADS), "--output", out, "--device", DEVICE,
+            "--max_rss_gb", str(max_rss_gb), "--reuse_input"]
+    proc, log_path, t0 = spawn_child(work, "soak", "clair3_tpu_torch.wgs_scale_demo", args,
+                                     own_peak_rss=True)
+    try:
+        proc.wait(timeout=SOAK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop(proc)
+    wall = time.time() - t0
+    log = open(log_path).read()
+    for line in log.splitlines():
+        if line.startswith(("[soak]", "VariantType", "SNP ", "INDEL ")):
+            print(f"[phase10] {line}")
+    check(proc.returncode == 0, f"phase 10 soak exited {proc.returncode}:\n{log[-4000:]}")
+    check("[soak] OK [production engines]" in log, "phase 10: the soak did not pass its gates")
+    check("[soak] reusing existing ref.fa + reads.bam" in log,
+          "phase 10: the soak simulated its input again")
+    check("[child] loaded []" in log, "phase 10 soak: loaded jax or clair3_tpu")
+    m = re.search(r"pileup kernel launches (\{.*?\}), plain pileup forwards on the card (\d+)",
+                  log)
+    check(m is not None, "phase 10 soak: no kernel line")
+    k, plain = json.loads(m.group(1)), int(m.group(2))
+    check(k["pileup_l1_tc"] > 0 and k["pileup_l1_tc"] == k["pileup_l2_tc"] == k["pileup_head"],
+          f"phase 10 soak: L1/L2/L3 launches {k}")
+    check(k["pileup_full"] == 0 and plain == 0,
+          f"phase 10 soak: the SIMT kernel or the plain path ran on the card {k} {plain}")
+    rss = float(re.search(r"\[soak\] OK .*peak RSS ([0-9.]+) GB", log).group(1))
+    print(f"[phase10] soak peak RSS {rss:.2f} GB: {rss - runtime_gb:.2f} GB above the runtime's "
+          f"{runtime_gb:.2f} (budget {SOAK_RSS_BUDGET_GB}); against the script's default "
+          f"{SOAK_RSS_BUDGET_GB} GB for the whole process: "
+          f"{'met' if rss <= SOAK_RSS_BUDGET_GB else 'missed'} ({smi})")
+    stages = re.search(r"\[soak\] stage times: (\{.*\})", log).group(1)
+    pileup_s = json.loads(stages.replace("'", '"'))["pileup"]
+    launches = sum(k[name] for name in ("pileup_l1_tc", "pileup_l2_tc", "pileup_head"))
+    print(f"[phase10] soak: {SOAK_MB} Mb over {SOAK_CONTIGS} contigs, process wall {wall:.2f} s "
+          f"(its input built beforehand; spawn to exit, {smi}); K1 launches {k} = "
+          f"{launches / SOAK_MB:.2f} per Mb ({k['pileup_l1_tc'] / SOAK_MB:.2f} pileup calls "
+          f"per Mb), pileup stage {pileup_s} s")
+    print(f"[phase10] phase wall {time.time() - t_phase:.2f} s ({smi})")
+    return {"kernels": k, "pileup_s": pileup_s}
+
+
 def setup(work):
     """The simulated phase-3 region, its pileup tensors and the FA tensors
     of its first 1024 candidates."""
@@ -1939,8 +2191,11 @@ def main(argv=None) -> int:
     print_ptxas_report(_build.build_log)
     _build.load_library()
 
+    inputs = None
     try:
         with tempfile.TemporaryDirectory() as work:
+            if 10 in phases:
+                inputs = start_soak_inputs(work)
             if phases & {2, 3, 4, 6, 8}:
                 fasta, bam, variants, real, real_fa = setup(work)
             if 2 in phases:
@@ -1969,7 +2224,10 @@ def main(argv=None) -> int:
                 phase8_multiprocess(torch, work, fasta, bam, variants, smi)
             if 9 in phases:
                 phase9_data_parallel(torch, work, smi)
+            if 10 in phases:
+                soak = phase10_soak(torch, work, smi, inputs)
     finally:
+        stop(inputs and inputs[0])
         shutdown_decode_pool()
 
     blocked = ("jax", "flax", "optax", "clair3_tpu")
@@ -1980,6 +2238,12 @@ def main(argv=None) -> int:
         return 0
     bf16 = str(torch.bfloat16)
     k1 = timing[(max(K1_TIME_BATCHES), bf16)]
+    # the engine cuts a chunk's candidates into batches of its largest
+    # bucket (4096 rows): every call but a chunk's last is full
+    k1_soak_s = soak["kernels"]["pileup_l1_tc"] * k1["ms"] / 1e3
+    print(f"[phase10] K1 in the soak's pileup stage: at most {k1_soak_s:.3f} s of device "
+          f"time (its calls x phase 2's time at B=4096) of {soak['pileup_s']} s, "
+          f"{100 * k1_soak_s / soak['pileup_s']:.2f}% ({smi})")
     k1_kernels = launches["bf16"]["pileup_kernels"]
     k3_ms, k3_plain, k3_lib, k3_bound, k3_by = k3_timing[("hifi", max(K3_TIME_BATCHES), bf16)]
     k2_key = (K2_SHAPES[0][1], max(TIME_BATCHES), bf16)
@@ -1995,7 +2259,9 @@ def main(argv=None) -> int:
          "max_abs_err": worst[bf16],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None, "launch_ms": k1["launch_ms"],
-         "pack_ms": k1["pack_ms"], "trunk_ms": k1["trunk_ms"]},
+         "pack_ms": k1["pack_ms"], "trunk_ms": k1["trunk_ms"],
+         # the soak's (phase 10) launches, from its own process
+         "soak_launches": soak["kernels"]},
         {"name": "fa_conv1", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/fa_conv1.cu",
          "replaces": "clair3_tpu/ops/pallas_fa.py:101",

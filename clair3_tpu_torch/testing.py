@@ -1,8 +1,8 @@
 """Seeded inputs and weights for the port's tests and its chip check, and
 the synthetic calling cases of the JAX package.
 
-``random_variables``, ``random_counts``, ``bf16_ulps`` and
-``ArrayDataset`` are the port's own.  The read simulator (``SimVariant`` .. ``write_test_case``), the two
+``random_variables``, ``random_counts``, ``bf16_ulps``, ``ArrayDataset``,
+``TorchCpuEngine`` and ``load_trained_fixture`` are the port's own.  The read simulator (``SimVariant`` .. ``write_test_case``), the two
 numpy oracle engines behind ``--use_oracle_engines``,
 ``trained_fixture_path`` and the VCF-row parity check
 ``vcf_rows_numerically_equivalent`` are copied from
@@ -23,7 +23,7 @@ from torch import nn
 
 from clair3_tpu_torch.io.bam import BamRead, write_bam
 from clair3_tpu_torch.io.fasta import write_fasta
-from clair3_tpu_torch.models.bridge import to_jax_variables
+from clair3_tpu_torch.models.bridge import from_jax_variables, to_jax_variables
 from clair3_tpu_torch.models.params_io import flatten_tree, unflatten_tree
 from clair3_tpu_torch.train.data import BinDataset
 
@@ -77,6 +77,49 @@ class ArrayDataset(BinDataset):
         for bin_idx, t in enumerate(self._tensors):
             n_chunks = len(t) // chunk_size or (1 if len(t) else 0)
             self.chunks.extend((bin_idx, c) for c in range(n_chunks))
+
+
+class TorchCpuEngine:
+    """f32 CPU twin of ``pipeline.engine.InferenceEngine``, the counterpart
+    of ``clair3_tpu.testing.FlaxCpuEngine``: the port's plain net (kernels
+    off) with the given JAX-layout variables, on the CPU at float32, with
+    none of the production engine's machinery (no wire forms, no depth
+    crop, no transfer thread).  Batches are zero-padded to FlaxCpuEngine's
+    buckets (64, doubling up to ``max_batch``).  The differential oracle for
+    the soak's parity slice: same trained nets, independent execution path.
+    """
+
+    def __init__(self, model: nn.Module, variables: Dict, max_batch: int = 2048):
+        model.load_state_dict(from_jax_variables(variables), strict=True)
+        model.compute_dtype = torch.float32
+        for switch in ("use_kernel", "use_kernel_conv1"):
+            if hasattr(model, switch):
+                setattr(model, switch, False)
+        self.model = model.to(torch.device("cpu"), torch.float32).eval()
+        self.max_batch = max_batch
+
+    def _bucket(self, n: int) -> int:
+        b = 64
+        while b < min(n, self.max_batch):
+            b *= 2
+        return b
+
+    def predict(self, x: np.ndarray) -> np.ndarray:
+        n = x.shape[0]
+        if n == 0:
+            return np.zeros((0, 24 if self.model.n_heads == 2 else 90), np.float32)
+        outs = []
+        with torch.inference_mode():
+            for lo in range(0, n, self.max_batch):
+                chunk = x[lo: lo + self.max_batch]
+                b = self._bucket(chunk.shape[0])
+                pad = b - chunk.shape[0] % b if chunk.shape[0] % b else 0
+                if pad:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+                y = self.model(torch.from_numpy(np.ascontiguousarray(chunk))).numpy()
+                outs.append(y[: y.shape[0] - pad] if pad else y)
+        return np.concatenate(outs, axis=0)
 
 
 BASES = "ACGT"
@@ -522,6 +565,22 @@ def trained_fixture_path(name: str) -> str:
 
     return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "tests", "fixtures", "trained", name)
+
+
+def load_trained_fixture(name: str) -> Dict:
+    """Load a committed fp16 checkpoint fixture as a float32 variable tree.
+
+    Raises FileNotFoundError with regeneration instructions if absent."""
+    import os
+
+    from clair3_tpu_torch.models.params_io import load_variables
+
+    path = trained_fixture_path(name)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} missing; regenerate it with `python -m "
+            f"clair3_tpu_torch.train_fixture_checkpoints OUT_DIR` and copy it there")
+    return load_variables(path)
 
 
 def vcf_rows_numerically_equivalent(

@@ -57,7 +57,9 @@ def test_every_port_module_is_checked():
                 "cli.py", "device.py", "models/init.py", "full_cascade_demo.py", "train/__init__.py",
                 "train/data.py", "train/unify.py", "train/loss.py", "train/step.py",
                 "train/trainer.py", "compat.py", "gvcf_validate.py",
-                "parallel/distributed.py", "parallel/mesh.py", "pipeline/call.py"):
+                "parallel/distributed.py", "parallel/mesh.py", "pipeline/call.py",
+                "wgs_scale_demo.py", "train_fixture_checkpoints.py", "quick_demo.py",
+                "visualize_tensor.py"):
         assert os.path.join("clair3_tpu_torch", rel) in files, rel
 
 

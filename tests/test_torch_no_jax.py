@@ -11,7 +11,9 @@ one rank of a group of one.  With them refused, the same call also
 runs from the reference's `.pt` files (`models/convert.py`,
 `models/schema.py`), as a `--remote_engines` client of a port server
 (`serve.py`) and as two `--dist_*` processes that gather their rows, and
-`sort_vcf` runs under its own name and the reference's `SortVcf`."""
+`sort_vcf` runs under its own name and the reference's `SortVcf`.  The soak
+(`python -m clair3_tpu_torch.wgs_scale_demo`) and the fixture trainer run
+so too, at a tiny scale."""
 
 import gzip
 import os
@@ -179,6 +181,29 @@ def test_full_cascade_demo_runs_without_jax(tmp_path):
     assert proc.returncode in (0, 1), proc.stderr[-3000:]
     assert "F1-score" in proc.stdout and "[full] total" in proc.stdout, proc.stdout[-3000:]
     assert os.path.exists(tmp_path / "demo" / "pileup_model" / "best_val_loss.npz")
+
+
+def test_soak_runs_without_jax(tmp_path):
+    """The soak in production mode at a tiny scale (20 kb, its parity
+    slice against the f32 CPU twin included): every gate of the script."""
+    proc = _refused_run(tmp_path, "-m", "clair3_tpu_torch.wgs_scale_demo", "--engines",
+                        "production", "--device", "cpu", "--mbases", "0.02", "--contigs", "1",
+                        "--coverage", "25", "--read_length", "900", "--parity_mbases", "0.01",
+                        "--output", str(tmp_path / "soak"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[soak] parity slice OK" in proc.stdout and "[soak] OK" in proc.stdout, proc.stdout
+
+
+def test_fixture_trainer_runs_without_jax(tmp_path):
+    """The fixture trainer at the demo's tiny scale with its gates at 0:
+    it trains, calls, scores and freezes."""
+    env = {"C3T_DEMO_L": "8000", "C3T_DEMO_TRAIN_END": "6000", "C3T_DEMO_STEPS_P": "1",
+           "C3T_DEMO_STEPS_F": "1", "C3T_DEMO_BATCH_P": "100", "C3T_DEMO_BATCH_F": "100",
+           "C3T_GATE_SNP": "0", "C3T_GATE_INDEL": "0"}
+    proc = _refused_run(tmp_path, "-m", "clair3_tpu_torch.train_fixture_checkpoints",
+                        str(tmp_path / "fixture"), "hifi", "--device", "cpu", env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert os.path.exists(tmp_path / "fixture" / "pileup_hifi.npz")
 
 
 _VCF_HEADER = "##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS\n"
