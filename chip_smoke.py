@@ -221,7 +221,38 @@ Phase 10 the port's soak (clair3_tpu_torch/wgs_scale_demo.py) with the
          sites, recall, F1, the validator's counts and K1's launches per Mb,
          each beside the card's name and power limit.
 
-With --phases (a comma-separated subset of 1-10) only those phases run (the
+Phase 11 the port's bench and its two microbenches, each run as a user runs it
+         (`python -m clair3_tpu_torch.bench`, then `.bench_fa_conv1` and
+         `.bench_history`, no arguments: cuda), an OS process of its own,
+         alone on the card, one after the other; every line they print is
+         printed beside the card's name and power limit.  Checks: each exits
+         0 and loads nothing of jax or clair3_tpu; the bench's result line
+         parses with value > 0; its `[kernels]` line shows L1, L2 and L3
+         launched equally often and above 0, the SIMT kernel and the plain
+         pileup path never; its ONT line and its serve line were printed,
+         with more requests than forwards (coalescing); each engine's
+         bytes_shipped is below the dense count; bench_fa_conv1's route
+         check held (the K3 route against the cuDNN net, bf16, random
+         weights, 2e-2) and K3 launched; bench_history's three route checks
+         held (0.02 against the shipped route on real pileup rows) and its
+         kernel routes ran (L1/L2/L3 and the SIMT kernel).
+
+Phase 12 Illumina on the card: the Illumina notebook's sample (60 kb, 150 bp
+         reads, 40x, 0.2% error, seed 11, a variant every 160 bp), called by
+         `call --platform ilmn --no_phasing_for_fa` with the committed hifi
+         nets (the ilmn preset has hifi's geometry) on the card at f32 and
+         bf16, and on the CPU at f32, as tests/test_torch_realign.py calls
+         it.  Checks: tmp/realigned.bam and tmp/full_aln_regions.bed
+         byte-identical between each card run and the CPU run; card f32 rows
+         against CPU f32 rows by `testing.f32_rows_equivalent` (flip budget
+         0; rows above QUAL 60 held on 1 - p) for pileup.vcf.gz,
+         full_alignment.vcf.gz and merge_output.vcf.gz; bf16 against f32
+         within phase 3's bound; L1, L2 and L3 once per pileup call at bf16,
+         the SIMT kernel at f32, no plain pileup forward on the card; FA rows
+         > 10.  F1 against the simulated truth is printed with no gate: the
+         nets were trained on hifi reads.
+
+With --phases (a comma-separated subset of 1-12) only those phases run (the
 kernels are built in any case) and the script ends without the kernels'
 record and the ok line.  Otherwise the line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
@@ -263,7 +294,7 @@ EVAL_SEED = 91
 GATE_SNP_F1 = 0.990
 GATE_INDEL_F1 = 0.992
 DEVICE = "cuda"
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 CALL_ARGS = ["--platform", "hifi", "--indel_min_af", "0.12", "--threads", "4",
              "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
 # the ONT region and gates of tests/test_trained_fixture_cascade.py
@@ -544,7 +575,7 @@ def rows_changed(out_a, out_b, name):
     return changed, len(ka), dq
 
 
-def bf16_vs_f32(out16, out32):
+def bf16_vs_f32(out16, out32, tag="phase3"):
     """bf16 rows against f32 rows, after tests/test_bf16_parity.py: at most
     1% of rows change their call or their source; QUAL moves by < 1.5 on
     rows decided by the pileup net, whose kernel this checks.  Rows decided
@@ -554,7 +585,7 @@ def bf16_vs_f32(out16, out32):
     units."""
     for name in ("pileup.vcf.gz", "merge_output.vcf.gz"):
         changed, n, dq = rows_changed(out32, out16, name)
-        print(f"[phase3] bf16 vs f32 {name}: {len(changed)}/{n} rows changed "
+        print(f"[{tag}] bf16 vs f32 {name}: {len(changed)}/{n} rows changed "
               f"call or source; max QUAL delta {dq['P']:.2f} on pileup rows, "
               f"{dq['F']:.2f} on full-alignment rows")
         check(n > 50, f"{name}: too few rows")
@@ -1446,20 +1477,20 @@ def spawn_child(work, tag, target, args, own_peak_rss=False):
     return proc, log_path, time.time()
 
 
-def wait_children(children):
+def wait_children(children, phase="phase 8", timeout=PHASE8_TIMEOUT_S):
     """Each child's wall time (spawn to exit) once every one has exited 0,
     with its log; a child still running at the time limit is killed, and so
     is every other when one fails."""
-    walls, deadline = {}, time.time() + PHASE8_TIMEOUT_S
+    walls, deadline = {}, time.time() + timeout
     try:
         while len(walls) < len(children):
             for tag, (proc, _, t0) in children.items():
                 if tag not in walls and proc.poll() is not None:
                     walls[tag] = time.time() - t0
-                    check(proc.returncode == 0, f"phase 8 {tag} exited {proc.returncode}:\n"
+                    check(proc.returncode == 0, f"{phase} {tag} exited {proc.returncode}:\n"
                           + open(children[tag][1]).read()[-4000:])
-            check(time.time() < deadline, f"phase 8: {sorted(set(children) - set(walls))} "
-                  f"still running after {PHASE8_TIMEOUT_S} s")
+            check(time.time() < deadline, f"{phase}: {sorted(set(children) - set(walls))} "
+                  f"still running after {timeout} s")
             time.sleep(0.05)
     finally:
         for proc, _, _ in children.values():
@@ -2118,6 +2149,168 @@ def phase10_soak(torch, work, smi, inputs):
     return {"kernels": k, "pileup_s": pileup_s}
 
 
+# the bench (python -m clair3_tpu_torch.bench) and its microbenches, in
+# this order, each an OS process of its own
+BENCH_RUNS = (("bench", "clair3_tpu_torch.bench", "[bench]"),
+              ("bench_fa_conv1", "clair3_tpu_torch.bench_fa_conv1", "[fa_conv1]"),
+              ("bench_history", "clair3_tpu_torch.bench_history", "[history]"))
+BENCH_TIMEOUT_S = 900
+
+
+def bench_kernels(tag, log):
+    """The last ``[kernels]`` line of a bench child's log."""
+    lines = [line for line in log.splitlines() if line.startswith("[kernels] ")]
+    check(lines, f"phase 11 {tag}: no [kernels] line")
+    return json.loads(lines[-1].split(" ", 1)[1])
+
+
+def phase11_bench(work, smi):
+    """The port's bench and its two microbenches on the card, each run as a
+    user runs it (``python -m ...``, no arguments: cuda), alone on the card,
+    one after the other."""
+    t_phase = time.time()
+    logs = {}
+    for tag, module, prefix in BENCH_RUNS:
+        ran = wait_children({tag: spawn_child(work, f"p11_{tag}", module, [])},
+                            phase="phase 11", timeout=BENCH_TIMEOUT_S)
+        wall, log = ran[tag]
+        logs[tag] = log
+        for line in log.splitlines():
+            if line.startswith((prefix, "|", "{")):
+                print(f"[phase11] {tag}: {line}" + ("" if smi in line else f" ({smi})"))
+        print(f"[phase11] {tag}: process wall {wall:.2f} s (spawn to exit; {smi})")
+        check("[child] loaded []" in log, f"phase 11 {tag}: loaded jax or clair3_tpu")
+
+    # the bench: its last line, its kernels, the ONT and serve lines, the bytes
+    lines = [line for line in logs["bench"].splitlines() if line.startswith('{"metric"')]
+    check(len(lines) == 1, f"phase 11 bench: {len(lines)} result lines")
+    result = json.loads(lines[0])
+    check(set(result) == {"metric", "value", "unit", "vs_baseline"} and result["value"] > 0,
+          f"phase 11 bench: result line {lines[0][:200]}")
+    k = bench_kernels("bench", logs["bench"])
+    check(k["pileup_l1_tc"] > 0 and k["pileup_l1_tc"] == k["pileup_l2_tc"] == k["pileup_head"],
+          f"phase 11 bench: L1/L2/L3 launches {k}")
+    check(k["pileup_full"] == 0 and k["plain_cuda_forwards"] == 0,
+          f"phase 11 bench: the SIMT kernel or the plain pileup path ran on the card {k}")
+    check("[bench] ONT e2e cascade" in logs["bench"], "phase 11 bench: no ONT line")
+    serve = re.search(r"\[bench\] serve mode: .*\((\d+) requests coalesced into (\d+) forwards\)",
+                      logs["bench"])
+    check(serve is not None, "phase 11 bench: no serve line")
+    requests, batches = int(serve.group(1)), int(serve.group(2))
+    check(requests > batches, f"phase 11 bench: no coalescing ({requests} requests, "
+          f"{batches} forwards)")
+    shipped = re.findall(r"\[bench\] bytes_shipped (\w+): (\d+) against (\d+) dense",
+                         logs["bench"])
+    check(len(shipped) == 2, "phase 11 bench: no bytes_shipped lines")
+    for kind, got, dense in shipped:
+        check(int(got) < int(dense), f"phase 11 bench: {kind} shipped {got} of {dense} dense")
+
+    # the microbenches: their route checks held (they exit 1 otherwise) and
+    # their kernels ran
+    check("route check:" in logs["bench_fa_conv1"] and "fa_net_mfu" in logs["bench_fa_conv1"],
+          "phase 11 bench_fa_conv1: no route check or MFU line")
+    k3 = bench_kernels("bench_fa_conv1", logs["bench_fa_conv1"])
+    check(k3["fa_conv1"] > 0, f"phase 11 bench_fa_conv1: K3 never launched {k3}")
+    hist = bench_kernels("bench_history", logs["bench_history"])
+    check(hist["pileup_l1_tc"] > 0 and hist["pileup_full"] > 0,
+          f"phase 11 bench_history: a kernel route did not run {hist}")
+    check(logs["bench_history"].count("vs shipped: max-abs prob diff") == 3
+          and "| configuration" in logs["bench_history"],
+          "phase 11 bench_history: a route check or the table is missing")
+    print(f"[phase11] bench {result['value']} {result['unit']} ({result['vs_baseline']}x the "
+          f"reference's RTX 4090 figure); serve {requests} requests in {batches} forwards; "
+          f"kernels: bench {k}, bench_fa_conv1 K3 {k3['fa_conv1']}, bench_history {hist}; "
+          f"phase wall {time.time() - t_phase:.2f} s ({smi})")
+    return {"bench": k, "fa_conv1": k3["fa_conv1"], "history": hist, "value": result["value"]}
+
+
+# the Illumina notebook's geometry (scripts/build_notebooks.py: 60 kb, 150 bp
+# reads, 40x, 0.2% error, seed 11, a variant every 160 bp)
+ILMN_BP = 60_000
+ILMN_CALL_ARGS = ["--platform", "ilmn", "--no_phasing_for_fa", "--threads", "4"]
+
+
+def simulate_ilmn(work):
+    """The Illumina notebook's simulated sample; (fasta, bam, variants)."""
+    import random
+
+    from clair3_tpu_torch.testing import SimVariant, random_reference, write_test_case
+
+    ref = random_reference(ILMN_BP, seed=11)
+    rng = random.Random(11)
+    variants = []
+    for pos in range(500, ILMN_BP - 500, 160):
+        gt = (1, 1) if rng.random() < 0.5 else (0, 1)
+        kind = rng.random()
+        if kind < 0.7:  # SNP
+            alt = rng.choice([b for b in "ACGT" if b != ref[pos]])
+            variants.append(SimVariant(pos, ref[pos], alt, gt))
+        elif kind < 0.85:  # insertion
+            ins = "".join(rng.choice("ACGT") for _ in range(rng.randint(1, 3)))
+            variants.append(SimVariant(pos, ref[pos], ref[pos] + ins, gt))
+        else:  # deletion
+            dlen = rng.randint(1, 3)
+            variants.append(SimVariant(pos, ref[pos:pos + dlen + 1], ref[pos], gt))
+    d = os.path.join(work, "ilmn")
+    os.makedirs(d)
+    fasta, bam, _, _ = write_test_case(d, ref_length=ILMN_BP, variants=variants, coverage=40,
+                                       read_length=150, seed=11, error_rate=0.002)
+    return fasta, bam, variants
+
+
+def phase12_ilmn(torch, work, smi):
+    """``call --platform ilmn --no_phasing_for_fa`` with the committed hifi
+    nets on the card at f32 and bf16, and on the CPU at f32."""
+    from clair3_tpu_torch import cli as port_cli
+    from clair3_tpu_torch.testing import QUAL_SATURATES, f32_rows_equivalent, trained_fixture_path
+
+    t_phase = time.time()
+    fasta, bam, variants = simulate_ilmn(work)
+    print(f"[phase12] simulated {ILMN_BP} bp, 40x 150 bp reads, 0.2% error, "
+          f"{len(variants)} variants in {time.time() - t_phase:.2f} s")
+    models = ["--pileup_model", trained_fixture_path("pileup_hifi.npz"),
+              "--full_alignment_model", trained_fixture_path("fa_hifi.npz")]
+    outs = {}
+    for label, device, flag in (("cuda fp32", DEVICE, "fp32"), ("cuda bf16", DEVICE, "bf16"),
+                                ("cpu fp32", "cpu", "fp32")):
+        out = os.path.join(work, "ilmn_" + label.replace(" ", "_"))
+        argv = ["call", "--bam_fn", bam, "--ref_fn", fasta, "--output", out, *models,
+                "--device", device, "--compute_dtype", flag, *ILMN_CALL_ARGS]
+        if device == "cpu":
+            t0 = time.time()
+            check(port_cli.main(argv) == 0, "phase 12: the CPU call failed")
+            r = {"wall": time.time() - t0}
+        else:
+            r = counted_call(torch, "phase12", label, argv)
+            check_pileup_route(torch, f"phase 12 {label}", r, flag)
+        outs[label] = out
+        fa_rows, m = score(out, variants)
+        print(f"[phase12] {label}: wall {r['wall']:.2f} s"
+              + (f", pileup kernel calls {r['calls']} (launches {r['kernels']}), plain "
+                 f"pileup forwards on the card {r['plain']}" if device != "cpu" else "")
+              + f", FA rows {fa_rows}, {f1_text(m)} (no gate: the nets were trained on hifi "
+              f"reads; {smi if device != 'cpu' else 'host CPU'})")
+        check(fa_rows > 10, f"phase 12 {label}: FA stage never engaged ({fa_rows} rows)")
+    for label in ("cuda fp32", "cuda bf16"):
+        for rel in ("realigned.bam", "full_aln_regions.bed"):
+            got, want = (open(os.path.join(outs[k], "tmp", rel), "rb").read()
+                         for k in (label, "cpu fp32"))
+            check(got == want and len(want) > 0,
+                  f"phase 12 {label}: tmp/{rel} differs from the CPU run's")
+    print("[phase12] tmp/realigned.bam and tmp/full_aln_regions.bed byte-identical between "
+          "the card runs and the CPU run")
+    for name in ("pileup.vcf.gz", "full_alignment.vcf.gz", "merge_output.vcf.gz"):
+        a, b = (_rows(os.path.join(outs[k], name)) for k in ("cpu fp32", "cuda fp32"))
+        ok, stats, n_high, high_dqual = f32_rows_equivalent(a, b)
+        print(f"[phase12] card f32 vs CPU f32 {name}: {len(set(a) & set(b))}/{len(a)} rows "
+              f"byte-identical, max dQUAL {stats['max_dqual']:.2f} below QUAL "
+              f"{QUAL_SATURATES}, {high_dqual:.2f} on the {n_high} rows above, flips "
+              f"{stats['flips']}")
+        check(len(a) > 10 and ok, f"phase 12 {name}: {stats['violations'][:5]}")
+    bf16_vs_f32(outs["cuda bf16"], outs["cuda fp32"], tag="phase12")
+    print(f"[phase12] phase wall {time.time() - t_phase:.2f} s ({smi})")
+
+
 def setup(work):
     """The simulated phase-3 region, its pileup tensors and the FA tensors
     of its first 1024 candidates."""
@@ -2226,6 +2419,10 @@ def main(argv=None) -> int:
                 phase9_data_parallel(torch, work, smi)
             if 10 in phases:
                 soak = phase10_soak(torch, work, smi, inputs)
+            if 11 in phases:
+                bench = phase11_bench(work, smi)
+            if 12 in phases:
+                phase12_ilmn(torch, work, smi)
     finally:
         stop(inputs and inputs[0])
         shutdown_decode_pool()
@@ -2260,14 +2457,17 @@ def main(argv=None) -> int:
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None, "launch_ms": k1["launch_ms"],
          "pack_ms": k1["pack_ms"], "trunk_ms": k1["trunk_ms"],
-         # the soak's (phase 10) launches, from its own process
-         "soak_launches": soak["kernels"]},
+         # the soak's (phase 10) and the bench's (phase 11) launches, each
+         # from its own process
+         "soak_launches": soak["kernels"], "bench_launches": bench["bench"]},
         {"name": "fa_conv1", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/fa_conv1.cu",
          "replaces": "clair3_tpu/ops/pallas_fa.py:101",
          "launches": launches["bf16+fa_conv1"]["fa_conv1"], "max_abs_err": k3_worst[bf16],
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": k3_lib},
+         "library_ms": k3_lib,
+         # launches in bench_fa_conv1's process (phase 11)
+         "bench_fa_conv1_launches": bench["fa_conv1"]},
         {"name": "bilstm", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/bilstm.cu",
          "replaces": "clair3_tpu/ops/pallas_lstm.py:60",

@@ -128,11 +128,20 @@ def run_ranks(fn: Callable, device: torch.device, backend: Optional[str] = None)
     if "RANK" in env:
         return _rank_main(int(env["RANK"]), int(env["WORLD_SIZE"]), "env://", fn, device,
                           backend, int(env.get("LOCAL_RANK", env["RANK"])))
-    init_method = f"tcp://127.0.0.1:{_free_port()}"
     world = torch.cuda.device_count() if device.type == "cuda" else 1
     if world <= 1:
-        return _rank_main(0, 1, init_method, fn, device, backend, 0)
+        return _rank_main(0, 1, f"tcp://127.0.0.1:{_free_port()}", fn, device, backend, 0)
+    spawn_ranks(fn, device, world)
+    return None
+
+
+def spawn_ranks(fn: Callable, device: torch.device, world: int) -> None:
+    """Run ``fn(rank_device)`` on ``world`` ranks, each a process spawned by
+    ``torch.multiprocessing`` and joined at a free port of 127.0.0.1 (NCCL
+    on CUDA, one card per rank; gloo on the CPU, where any number of ranks
+    share the host).  ``fn`` must pickle; a rank that raises ends the
+    others and raises here."""
     import torch.multiprocessing as mp
 
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
     mp.spawn(_spawned, args=(world, init_method, fn, device), nprocs=world, join=True)
-    return None

@@ -108,14 +108,16 @@ def fit(
     max_steps: Optional[int] = None,
     init_variables: Optional[dict] = None,
     use_class_weights: bool = False,
-    device: torch.device = torch.device("cpu"),
+    device="cuda",
     data_parallel: bool = False,
 ) -> dict:
     """``train_model``'s loop over ``dataset``, any object with
     ``BinDataset``'s ``chunks``, ``get_chunk``, ``batches`` and
-    ``split_chunks``, on ``device``, which the caller has resolved (this
-    rank's, with ``data_parallel``)."""
+    ``split_chunks``, on ``device`` (this rank's, with ``data_parallel``;
+    ``cuda`` raises without a GPU)."""
     import torch.distributed as dist
+
+    device = resolve_device(device)
 
     rank, world = (dist.get_rank(), dist.get_world_size()) if data_parallel else (0, 1)
     os.makedirs(output_dir, exist_ok=True)

@@ -157,6 +157,10 @@ DEFINITIONS = {
     "wgs_scale_demo.py": ("scripts/wgs_scale_demo.py", [
         "SEG", "peak_rss_gb", "build_input", "_vcf_body"], {}),
     "train_fixture_checkpoints.py": ("scripts/train_fixture_checkpoints.py", ["_freeze"], {}),
+    # the bench's workload, routing, cascade and decode microbench
+    "bench.py": ("bench.py", [
+        "GENOME_MB", "N_CHUNKS", "PLATS", "VAR_PCT_FULL", "MATRIX_DEPTH", "make_workload",
+        "route_candidates", "run_cascade", "bench_oracle_decode"], {}),
     "visualize_tensor.py": ("scripts/visualize_tensor.py", [
         "PILEUP_CHANNELS", "FA_CHANNELS", "SHADES", "shade", "show_pileup", "show_fa",
         "main"], {}),
@@ -311,7 +315,8 @@ def test_every_copy_is_listed():
                 if os.path.exists(os.path.join(JAX, rel)):
                     shared.add(rel)
     # the port's own modules that share a name with the JAX package's
-    own = {"__init__.py", "__main__.py", "models/__init__.py", "models/full_alignment.py",
+    own = {"__init__.py", "__main__.py", "models/__init__.py", "models/fb.py",
+           "models/full_alignment.py",
            "models/pileup.py", "ops/__init__.py", "ops/lstm.py",
            "parallel/__init__.py", "parallel/distributed.py",
            "pipeline/__init__.py", "pipeline/engine.py",

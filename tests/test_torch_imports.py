@@ -59,7 +59,8 @@ def test_every_port_module_is_checked():
                 "train/trainer.py", "compat.py", "gvcf_validate.py",
                 "parallel/distributed.py", "parallel/mesh.py", "pipeline/call.py",
                 "wgs_scale_demo.py", "train_fixture_checkpoints.py", "quick_demo.py",
-                "visualize_tensor.py"):
+                "visualize_tensor.py", "models/fb.py", "bench.py", "bench_fa_conv1.py",
+                "bench_history.py", "graft_entry.py", "build_notebooks.py"):
         assert os.path.join("clair3_tpu_torch", rel) in files, rel
 
 

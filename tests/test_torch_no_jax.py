@@ -13,7 +13,8 @@ runs from the reference's `.pt` files (`models/convert.py`,
 (`serve.py`) and as two `--dist_*` processes that gather their rows, and
 `sort_vcf` runs under its own name and the reference's `SortVcf`.  The soak
 (`python -m clair3_tpu_torch.wgs_scale_demo`) and the fixture trainer run
-so too, at a tiny scale."""
+so too, at a tiny scale, and so do the bench and its two microbenches (at
+their wiring sizes), the graft entry points and the notebook generator."""
 
 import gzip
 import os
@@ -43,11 +44,15 @@ _DRIVER = textwrap.dedent("""
 
     if sys.argv[1] == "refused":
         sys.meta_path.insert(0, Refuse())
-    module, args = ((sys.argv[3], sys.argv[4:]) if sys.argv[2] == "-m"
-                    else ("clair3_tpu_torch", sys.argv[2:]))
-    sys.argv = [module] + args
+    mode, target, args = ((sys.argv[2], sys.argv[3], sys.argv[4:])
+                          if sys.argv[2] in ("-m", "-c")
+                          else ("-m", "clair3_tpu_torch", sys.argv[2:]))
+    sys.argv = [target] + args
     try:
-        runpy.run_module(module, run_name="__main__")
+        if mode == "-m":
+            runpy.run_module(target, run_name="__main__")
+        else:
+            exec(target)
         rc = 0
     except SystemExit as exc:
         rc = exc.code or 0
@@ -261,3 +266,38 @@ def test_dist_call_runs_without_jax(tmp_path):
         assert p.returncode == 0, text[-3000:]
         assert "BLOCKED_LOADED=[]" in text and "from 2 processes" in text, text[-3000:]
         assert os.path.exists(tmp_path / "out" / f"proc{i}" / "merge_output.vcf.gz")
+
+
+@pytest.mark.parametrize("module,env", [
+    ("clair3_tpu_torch.bench", {"C3T_BENCH_SMOKE": "1"}),
+    ("clair3_tpu_torch.bench_fa_conv1", {"C3T_BENCH_SMOKE": "1"}),
+    ("clair3_tpu_torch.bench_history", {"C3T_HISTORY_SMOKE": "1"}),
+])
+def test_bench_runs_without_jax(tmp_path, module, env):
+    """The bench and its two microbenches, each at its wiring size on the
+    CPU."""
+    proc = _refused_run(tmp_path, "-m", module, "--device", "cpu",
+                        env={**env, "OMP_NUM_THREADS": "2"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[kernels] " in proc.stdout, proc.stdout[-3000:]
+
+
+def test_graft_entry_runs_without_jax(tmp_path):
+    """``entry`` on the CPU and ``dryrun_multichip`` with two gloo ranks (the
+    ranks are processes of their own, spawned from this one's modules)."""
+    code = ("from clair3_tpu_torch.graft_entry import dryrun_multichip, entry\n"
+            "fn, args = entry(device='cpu')\n"
+            "assert tuple(fn(*args).shape) == (256, 90)\n"
+            "dryrun_multichip(2)\n")
+    proc = _refused_run(tmp_path, "-c", code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[dryrun_multichip] n_devices=2" in proc.stdout, proc.stdout[-3000:]
+
+
+def test_build_notebooks_runs_without_jax(tmp_path):
+    """The notebook generator writes all four notebooks (unexecuted, into a
+    directory of the test's own)."""
+    proc = _refused_run(tmp_path, "-m", "clair3_tpu_torch.build_notebooks", "--no-exec",
+                        "--device", "cpu", "--out_dir", str(tmp_path / "nb"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert len(list((tmp_path / "nb").glob("*.ipynb"))) == 4

@@ -17,7 +17,9 @@ from clair3_tpu_torch.realign.realigner import (
     realign_reads_in_region,
     select_realignment_windows,
 )
-from clair3_tpu_torch.testing import random_reference
+from clair3_tpu_torch.testing import QUAL_SATURATES, random_reference
+# rows above QUAL_SATURATES are held on 1 - p
+from clair3_tpu_torch.testing import f32_rows_equivalent as _equivalent_ilmn_rows
 
 
 def test_affine_align_exact_match():
@@ -360,48 +362,6 @@ def test_realignment_full_read_span_haplotypes():
 
 
 ILMN_BP = 20_000
-# QUAL = 10 - 10 log10((1 - p) / p) of a probability p that is a product of
-# f32 head outputs near 1, whose resolution is one f32 ulp below 1 (2**-24);
-# above QUAL 60 (1 - p < 1e-5) one ulp of one head moves QUAL by more than
-# 0.1 (at QUAL 77.47, 1 - p is three ulps and one ulp moves it by 1.76).
-# Such rows are held on 1 - p instead: within four ulps (one per head) plus
-# the printed QUAL's rounding.
-QUAL_SATURATES = 60.0
-F32_ULP_BELOW_1 = 2.0 ** -24
-
-
-def _one_minus_p(qual):
-    return 10.0 ** (-(float(qual) - 10.0) / 10.0)
-
-
-def _equivalent_ilmn_rows(a, b):
-    """vcf_rows_numerically_equivalent with flip budget 0 and its default
-    tolerances on every row below QUAL_SATURATES on both sides; above it,
-    every discrete field equal, no routing flip, and 1 - p within four f32
-    ulps plus the print rounding (0.005 QUAL, 0.12% of 1 - p)."""
-    from clair3_tpu_torch.testing import vcf_rows_numerically_equivalent
-
-    def key(r):
-        return tuple(r.split("\t")[:2])
-
-    qa, qb = ({key(r): float(r.split("\t")[5]) for r in rows} for rows in (a, b))
-    high = {k for k in set(qa) & set(qb) if min(qa[k], qb[k]) >= QUAL_SATURATES}
-    ok, stats = vcf_rows_numerically_equivalent([r for r in a if key(r) not in high],
-                                                [r for r in b if key(r) not in high],
-                                                flip_budget=0.0)
-    ok_high, high_stats = vcf_rows_numerically_equivalent(
-        [r for r in a if key(r) in high], [r for r in b if key(r) in high],
-        qual_tol=float("inf"), gq_tol=1 << 30, pl_tol=1 << 30, flip_budget=0.0)
-    worst = 0.0
-    for k in high:
-        pa, pb = _one_minus_p(qa[k]), _one_minus_p(qb[k])
-        worst = max(worst, abs(pa - pb) / (4 * F32_ULP_BELOW_1 + 1.2e-3 * max(pa, pb)))
-    stats["violations"] += high_stats["violations"]
-    if worst > 1.0:
-        stats["violations"].append(f"1 - p of a row above QUAL {QUAL_SATURATES} moved by "
-                                   f"{worst:.2f}x its bound")
-    return ok and ok_high and worst <= 1.0, stats, len(high), high_stats["max_dqual"]
-
 
 
 def test_ilmn_cli_matches_the_jax_cli(tmp_path):

@@ -425,7 +425,7 @@ def test_ranks_match_one_device_with_dropout(tmp_path, kind, world):
         mp.setattr(trainer, "build_model",
                    lambda *a: nets.append(_relu_masks(build(*a), masks)) or nets[-1])
         want = fit(ArrayDataset([x], [y], chunk_size=chunk), str(tmp_path / "one"),
-                   TrainConfig(**cfg), max_steps=steps)
+                   TrainConfig(**cfg), max_steps=steps, device=torch.device("cpu"))
     want_state = {k: v.numpy() for k, v in nets[0].state_dict().items()}
     want_grads = {k: p.grad.numpy() for k, p in nets[0].named_parameters()}
     want_hist = np.array(want["history"], dtype=np.float64)

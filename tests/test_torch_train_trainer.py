@@ -125,3 +125,19 @@ def test_dropout_runs_follow_the_seed(tmp_path, tiny_bin):
             for i, seed in enumerate((0, 0, 1))]
     assert runs[0] == runs[1]
     assert runs[0] != runs[2]
+
+
+def test_fit_defaults_to_cuda(tmp_path):
+    """``fit`` runs on the card unless told otherwise, as ``train_model``
+    does: without a device on a host with no GPU it raises
+    ``resolve_device``'s error before it trains or writes anything."""
+    from clair3_tpu_torch.testing import ArrayDataset
+    from clair3_tpu_torch.train.trainer import fit
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default resolves")
+    data = ArrayDataset([random_counts(3, (50, 33, 18))],
+                        [one_hot_labels(np.random.RandomState(4), 50)], chunk_size=25)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit(data, str(tmp_path / "m"), _cfg(), max_steps=1)
+    assert not (tmp_path / "m").exists()
