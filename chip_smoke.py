@@ -252,7 +252,31 @@ Phase 12 Illumina on the card: the Illumina notebook's sample (60 kb, 150 bp
          > 10.  F1 against the simulated truth is printed with no gate: the
          nets were trained on hifi reads.
 
-With --phases (a comma-separated subset of 1-12) only those phases run (the
+Phase 13 the engine over several devices, as the JAX engine shards each
+         batch over its local mesh: with the committed hifi and ONT nets,
+         built as `cli._load_engine` builds them (compact wire forms, FA
+         depth crop), on phase 3's pileup and FA tensors and on the same of
+         phase 6's ONT region (seed 91, depth 89, dwell channel): engines
+         over `parallel.mesh.local_devices("cuda")` (their device count
+         printed) and over two replicas of cuda:0, each on its own stream,
+         held against the one-device engine at f32 (TF32 off), bf16, and
+         for the FA nets bf16 with CLAIR3T_ENABLE_FA_CONV1=1.  Checks: f32
+         max |dp| <= 1e-5 (pileup and FA), bytes_shipped and dense_bytes
+         equal; bf16 pileup max |dp| <= 1e-6, FA printed; K3 launched by
+         every replica of the opt-in engines and by none otherwise; no
+         plain pileup forward on the card.  Then `call` on the 120 kb region
+         at f32 and bf16, once on one device and once with its engines over
+         the two replicas: f32 merged and pileup rows against the one-device
+         run by `vcf_rows_numerically_equivalent`, flip budget 0; the bf16
+         run within phase 3's bf16-vs-f32 bound, byte-identical rows against
+         the one-device bf16 run printed; K1's launches counted per replica
+         (each replica's forwards, read around it): at bf16 each replica
+         launches L1, L2 and L3 and never the SIMT kernel, at f32 the
+         reverse.  Each engine's wall per batch is printed beside the card's
+         name and power limit (one card: the replicas share it, and their
+         times say nothing of several cards).
+
+With --phases (a comma-separated subset of 1-13) only those phases run (the
 kernels are built in any case) and the script ends without the kernels'
 record and the ok line.  Otherwise the line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
@@ -294,7 +318,7 @@ EVAL_SEED = 91
 GATE_SNP_F1 = 0.990
 GATE_INDEL_F1 = 0.992
 DEVICE = "cuda"
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 CALL_ARGS = ["--platform", "hifi", "--indel_min_af", "0.12", "--threads", "4",
              "--var_pct_full", "0.3", "--ref_pct_full", "0.3"]
 # the ONT region and gates of tests/test_trained_fixture_cascade.py
@@ -2311,6 +2335,211 @@ def phase12_ilmn(torch, work, smi):
     print(f"[phase12] phase wall {time.time() - t_phase:.2f} s ({smi})")
 
 
+PHASE13_F32_TOL = 1e-5
+PHASE13_BF16_PILEUP_TOL = 1e-6
+PHASE13_NETS = {("hifi", "pileup"): "pileup_hifi.npz",
+                ("hifi", "full_alignment"): "fa_hifi.npz",
+                ("ont", "pileup"): "pileup_ont.npz",
+                ("ont", "full_alignment"): "fa_ont.npz"}
+
+
+def sharded_inputs(work, real, real_fa):
+    """(platform, kind) -> tensors: phase 3's pileup and FA tensors, and the
+    same of phase 6's ONT region (its first 1024 candidates' FA tensors at
+    depth 89 with the dwell channel)."""
+    from clair3_tpu_torch.fullalign.extractor import create_fa_tensors
+    from clair3_tpu_torch.pileup.extractor import create_pileup_tensors
+    from clair3_tpu_torch.testing import simulate
+
+    d = os.path.join(work, "sharded_ont")
+    os.makedirs(d)
+    fasta, bam, _, _ = simulate(d, ONT_EVAL_BP, seed=EVAL_SEED, platform="ont")
+    ont, cands, _, _ = create_pileup_tensors(bam, fasta, "chr1", 1, ONT_EVAL_BP)
+    positions = [int(str(c).split(":")[1]) for c in cands[:1024]]
+    ont_fa, _, _ = create_fa_tensors(bam, fasta, "chr1", positions, matrix_depth=89,
+                                     no_phasing=True, enable_dwell=True)
+    return {("hifi", "pileup"): real, ("hifi", "full_alignment"): real_fa,
+            ("ont", "pileup"): ont, ("ont", "full_alignment"): ont_fa}
+
+
+def replica_launches():
+    """K1's launches by kernel and K3's (``fa_conv1``), since the counts
+    were last set to 0."""
+    from clair3_tpu_torch.ops import fa_conv1 as k3
+    from clair3_tpu_torch.ops import pileup_full as pf
+
+    return {**pf.kernel_launches, "fa_conv1": k3.launches}
+
+
+def count_by_replica(engine):
+    """The kernels' launches by replica of ``engine``, read around each
+    replica's forward (one submitter thread issues every shard, so no other
+    forward runs in between); returns one dict per replica, filled as it
+    runs."""
+    counts = [dict.fromkeys(replica_launches(), 0) for _ in engine.replicas]
+    for net, c in zip(engine.replicas, counts):
+        before = {}
+
+        def pre(mod, args, before=before):
+            before.update(replica_launches())
+
+        def post(mod, args, out, before=before, c=c):
+            for k, v in replica_launches().items():
+                c[k] += v - before[k]
+
+        net.register_forward_pre_hook(pre)
+        net.register_forward_hook(post)
+    return counts
+
+
+def replica_route(counts, flag, label):
+    """Each replica ran K1 on ``flag``'s route only: at bf16 L1, L2 and L3
+    equally often and never the SIMT kernel, at f32 the reverse."""
+    for i, c in enumerate(counts):
+        tc = [c["pileup_l1_tc"], c["pileup_l2_tc"], c["pileup_head"]]
+        if flag == "bf16":
+            check(tc[0] > 0 and len(set(tc)) == 1 and c["pileup_full"] == 0,
+                  f"{label}: replica {i} launched {c}")
+        else:
+            check(c["pileup_full"] > 0 and not any(tc), f"{label}: replica {i} launched {c}")
+
+
+def timed_predict(torch, engine, x):
+    """(probabilities, host wall per batch in ms) of the second of two
+    predicts (the first builds, packs and warms)."""
+    engine.predict(x)
+    t0 = time.perf_counter()
+    p = engine.predict(x)
+    wall = time.perf_counter() - t0
+    return p, wall * 1e3 / -(-len(x) // engine.buckets[-1])
+
+
+PHASE13_RUNS = (("fp32", "float32", {}), ("bf16", "bfloat16", {}),
+                ("bf16+fa_conv1", "bfloat16", {"CLAIR3T_ENABLE_FA_CONV1": "1"}))
+
+
+def phase13_engines(torch, inputs, smi):
+    """Engines over ``local_devices`` and over two replicas of one card
+    against the one-device engine, on each net's tensors, at f32, bf16 and
+    (the FA nets) bf16 with K3; returns K3's launches by replica of the
+    two-replica opt-in engines."""
+    import numpy as np
+
+    from clair3_tpu_torch.cli import _load_engine
+    from clair3_tpu_torch.parallel.mesh import local_devices
+    from clair3_tpu_torch.testing import trained_fixture_path
+
+    every = local_devices(DEVICE)
+    dev = every[0]
+    print(f"[phase13] local_devices({DEVICE!r}): {len(every)} device(s) "
+          f"{[str(d) for d in every]} ({smi})")
+    configs = ((f"local_devices ({len(every)})", every), (f"2 replicas on {dev}", [dev, dev]))
+    k3_by_replica = {}
+    for flag, dt, env in PHASE13_RUNS:
+        for (plat, kind), x in inputs.items():
+            if env and kind == "pileup":
+                continue
+            path = trained_fixture_path(PHASE13_NETS[plat, kind])
+            os.environ.update(env)  # read when the net is loaded
+            try:
+                zero_kernel_counts()
+                one = _load_engine(path, kind, dev, getattr(torch, dt), [dev])
+                p1, w1 = timed_predict(torch, one, x)
+                line = (f"[phase13] {plat} {kind} {flag} {tuple(x.shape)}: one device "
+                        f"{w1:.3f} ms/batch")
+                for label, devices in configs:
+                    engine = _load_engine(path, kind, dev, getattr(torch, dt), devices)
+                    counts = count_by_replica(engine)
+                    p, wall = timed_predict(torch, engine, x)
+                    err = float(np.abs(p - p1).max())
+                    line += (f"; {label}: {wall:.3f} ms/batch, max |dp| {err:.3g}, "
+                             f"bytes_shipped {engine.bytes_shipped} / {one.bytes_shipped}")
+                    tag = f"phase 13 {plat} {kind} {flag} {label}"
+                    check(p.shape == p1.shape and np.isfinite(p).all(), f"{tag}: {p.shape}")
+                    check((engine.bytes_shipped, engine.dense_bytes)
+                          == (one.bytes_shipped, one.dense_bytes),
+                          f"{tag}: bytes {engine.bytes_shipped}/{engine.dense_bytes} against "
+                          f"{one.bytes_shipped}/{one.dense_bytes}")
+                    if flag == "fp32":
+                        check(err <= PHASE13_F32_TOL, f"{tag}: max |dp| {err}")
+                    elif kind == "pileup":
+                        check(err <= PHASE13_BF16_PILEUP_TOL, f"{tag}: max |dp| {err}")
+                    check(len(counts) == len(devices), f"{tag}: {len(counts)} replicas")
+                    if kind == "pileup":
+                        replica_route(counts, flag, tag)
+                    else:
+                        check(all((c["fa_conv1"] > 0) == bool(env) for c in counts),
+                              f"{tag}: K3 launches by replica {counts}")
+                        if env and len(devices) > 1:
+                            k3_by_replica[plat] = [c["fa_conv1"] for c in counts]
+            finally:
+                for key in env:
+                    del os.environ[key]
+            check(kernel_counts()["plain"] == 0, f"phase 13 {plat} {kind} {flag}: the plain "
+                  "pileup path ran on the card")
+            print(f"{line} ({smi})")
+    return k3_by_replica
+
+
+def phase13_cascade(torch, work, fasta, bam, variants, smi):
+    """`call` on the 120 kb region at f32 and bf16, on one device and with
+    its engines over two replicas of that device; returns K1's launches by
+    replica of the two-replica runs."""
+    from clair3_tpu_torch import cli as port_cli
+    from clair3_tpu_torch.parallel.mesh import local_devices
+
+    dev = local_devices(DEVICE)[0]
+    local, load = port_cli.local_devices, port_cli._load_engine
+    by_replica = {}
+
+    def counting_load(path, kind, device, dt, devices=None):
+        engine = load(path, kind, device, dt, devices)
+        if kind == "pileup":
+            by_replica[current] = count_by_replica(engine)
+        return engine
+
+    outs = {}
+    port_cli._load_engine = counting_load
+    try:
+        for n in (1, 2):
+            port_cli.local_devices = lambda device, n_devices=None, n=n: [dev] * n
+            for flag in ("fp32", "bf16"):
+                current = (n, flag)
+                label = f"{n} replica(s) {flag}"
+                out = os.path.join(work, f"sharded_{n}_{flag}")
+                r = counted_call(torch, "phase13", label, hifi_argv(fasta, bam, out, flag))
+                fa_rows, m = score(out, variants)
+                print(f"[phase13] {label}: wall {r['wall']:.2f} s, launches {r['kernels']}, "
+                      f"by replica {by_replica[current]}, FA rows {fa_rows}, {f1_text(m)} "
+                      f"({smi})")
+                check_pileup_route(torch, label, r, flag)
+                check(all(len(e.devices) == n for _, e in r["engines"]),
+                      f"{label}: engines over {[len(e.devices) for _, e in r['engines']]}")
+                replica_route(by_replica[current], flag, label)
+                check(fa_rows > 10, f"{label}: FA stage never engaged ({fa_rows} rows)")
+                outs[n, flag] = out
+    finally:
+        port_cli.local_devices, port_cli._load_engine = local, load
+    for name in ("pileup.vcf.gz", "merge_output.vcf.gz"):
+        rows_equivalent("phase13", "2 replicas vs one device f32", outs[1, "fp32"],
+                        outs[2, "fp32"], name)
+        a, b = _rows(os.path.join(outs[1, "bf16"], name)), _rows(os.path.join(outs[2, "bf16"], name))
+        print(f"[phase13] 2 replicas vs one device bf16 {name}: "
+              f"{len(set(a) & set(b))}/{len(a)} rows byte-identical ({len(b)} rows)")
+    bf16_vs_f32(outs[2, "bf16"], outs[1, "fp32"], tag="phase13")
+    return {flag: by_replica[2, flag] for flag in ("bf16", "fp32")}
+
+
+def phase13_sharded(torch, work, fasta, bam, variants, real, real_fa, smi):
+    """Phase 13; returns K1's launches by replica of the two-replica calls
+    and K3's of the two-replica opt-in engines."""
+    t0 = time.time()
+    k3 = phase13_engines(torch, sharded_inputs(work, real, real_fa), smi)
+    k1 = phase13_cascade(torch, work, fasta, bam, variants, smi)
+    print(f"[phase13] phase wall {time.time() - t0:.2f} s ({smi})")
+    return {"k1": k1, "k3": k3}
+
+
 def setup(work):
     """The simulated phase-3 region, its pileup tensors and the FA tensors
     of its first 1024 candidates."""
@@ -2389,7 +2618,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as work:
             if 10 in phases:
                 inputs = start_soak_inputs(work)
-            if phases & {2, 3, 4, 6, 8}:
+            if phases & {2, 3, 4, 6, 8, 13}:
                 fasta, bam, variants, real, real_fa = setup(work)
             if 2 in phases:
                 dev = torch.device(DEVICE)
@@ -2423,6 +2652,9 @@ def main(argv=None) -> int:
                 bench = phase11_bench(work, smi)
             if 12 in phases:
                 phase12_ilmn(torch, work, smi)
+            if 13 in phases:
+                sharded = phase13_sharded(torch, work, fasta, bam, variants, real, real_fa,
+                                          smi)
     finally:
         stop(inputs and inputs[0])
         shutdown_decode_pool()
@@ -2459,15 +2691,20 @@ def main(argv=None) -> int:
          "pack_ms": k1["pack_ms"], "trunk_ms": k1["trunk_ms"],
          # the soak's (phase 10) and the bench's (phase 11) launches, each
          # from its own process
-         "soak_launches": soak["kernels"], "bench_launches": bench["bench"]},
+         "soak_launches": soak["kernels"], "bench_launches": bench["bench"],
+         # phase 13's calls with the engines over two replicas of one card:
+         # each replica's launches, by kernel
+         "replica_launches": {k: [{n: c[n] for n in k1_kernels} for c in by_replica]
+                              for k, by_replica in sharded["k1"].items()}},
         {"name": "fa_conv1", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/fa_conv1.cu",
          "replaces": "clair3_tpu/ops/pallas_fa.py:101",
          "launches": launches["bf16+fa_conv1"]["fa_conv1"], "max_abs_err": k3_worst[bf16],
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": k3_lib,
-         # launches in bench_fa_conv1's process (phase 11)
-         "bench_fa_conv1_launches": bench["fa_conv1"]},
+         # launches in bench_fa_conv1's process (phase 11), and by replica
+         # of phase 13's two-replica opt-in FA engines
+         "bench_fa_conv1_launches": bench["fa_conv1"], "replica_launches": sharded["k3"]},
         {"name": "bilstm", "route": "cuda",
          "source": "clair3_tpu_torch/csrc/bilstm.cu",
          "replaces": "clair3_tpu/ops/pallas_lstm.py:60",

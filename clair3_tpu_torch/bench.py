@@ -304,8 +304,9 @@ def bench_forward(model, stage_batch, batch: int, iters: int) -> float:
 
 
 def build_production_engines(device="cuda", plat=PLATS["hifi"]):
-    """The engines ``cli call`` builds (``cli._load_engine``): bf16 on a GPU
-    (f32 on the CPU); the pileup net on its kernels with int16 transfer and
+    """The engines ``cli call`` builds (``cli._load_engine``), each batch
+    split over every visible card: bf16 on a GPU (f32 on the CPU); the
+    pileup net on its kernels with int16 transfer and
     the compact form; the FA net on cuDNN with the depth crop and the
     compact form (its conv1 kernel stays opt-in: ``CLAIR3T_ENABLE_FA_CONV1``),
     loaded with the committed fixture checkpoints of ``plat``, so the
@@ -420,9 +421,12 @@ def main(argv=None) -> int:
 
 def run(device, tmp_dir: str, label: str) -> int:
     size = sizes()
-    n_dev = 1  # one engine on one device: "per card"
-    print(f"[bench] device: {label}", file=sys.stderr)
     pe, fe = build_production_engines(device)
+    # each engine batch is split over every visible card, as the JAX
+    # bench's engines shard it over the mesh: its rates are "per card"
+    n_dev = len(pe.devices)
+    print(f"[bench] device: {label}; {n_dev} device(s): "
+          f"{', '.join(map(str, pe.devices))}", file=sys.stderr)
 
     (B_P, ITERS_P), (B_F, ITERS_F) = size["forward"]
 

@@ -270,19 +270,22 @@ result['best_val_loss']'''),
     ("markdown", """\
 ## 4. Call the held-out region
 The production pipeline: chunk planning -> native extraction -> bucketed
-forward (`InferenceEngine`; on a GPU bf16 and the pileup kernels) ->
+forward (`InferenceEngine`; on a GPU bf16 and the pileup kernels, each
+batch split over every visible card) ->
 native decode -> sorted, indexed VCF."""),
     ("code", '''\
 import torch
 from clair3_tpu_torch.cli import load_model, resolve_compute_dtype
 from clair3_tpu_torch.config import CallConfig
+from clair3_tpu_torch.parallel.mesh import local_devices
 from clair3_tpu_torch.pipeline.call import VariantCaller
 from clair3_tpu_torch.pipeline.engine import InferenceEngine
 
 device = torch.device(DEVICE)
-engine = InferenceEngine(load_model(result['model_path'], 'pileup', device,
+devices = local_devices(device)  # on "cuda" every visible card: each batch is split over them
+engine = InferenceEngine(load_model(result['model_path'], 'pileup', devices[0],
                                     resolve_compute_dtype('auto', device)),
-                         device, buckets=(256, 1024))
+                         devices[0], buckets=(256, 1024), devices=devices)
 eval_bed = os.path.join(out_dir, 'eval.bed')
 with open(eval_bed, 'w') as fh:
     fh.write(f'chr1\\t{TRAIN_END}\\t{L}\\n')

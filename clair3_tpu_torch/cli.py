@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from clair3_tpu_torch.device import resolve_device
+from clair3_tpu_torch.parallel.mesh import local_devices
 
 _DTYPES = {"fp32": torch.float32, "f32": torch.float32, "float32": torch.float32,
            "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
@@ -318,21 +319,26 @@ def load_model(path: str, kind: str, device: torch.device,
 
 
 def _load_engine(path: str, kind: str, device: torch.device,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, devices=None):
     """The engines as ``clair3_tpu.cli._load_engine`` builds them: pileup
     batches as int16 or their compact form; full-alignment batches cropped
-    to their depth band and packed."""
+    to their depth band and packed.  Each batch is split over ``devices``
+    (default ``parallel.mesh.local_devices(device)``: every visible card
+    for ``cuda``, the one card for ``cuda:k``, ``[cpu]`` on the CPU), as
+    the JAX loader's engines shard it over the local mesh; the net is
+    loaded once, on the first, and replicated on the others."""
     from clair3_tpu_torch.pipeline.engine import InferenceEngine
 
-    model = load_model(path, kind, device, compute_dtype)
+    devices = list(devices or local_devices(device))
+    model = load_model(path, kind, devices[0], compute_dtype)
     if kind == "pileup":
         # counts are bounded by ~1.5x max_depth after the high-coverage
         # rescale, so int16 halves the host->device copy losslessly, and
         # the compact form halves it again
-        return InferenceEngine(model, device, transfer_dtype=np.int16,
-                               pileup_compact=True)
-    engine = InferenceEngine(model, device, transfer_dtype=np.int8,
-                             depth_crop=True, fa_compact=True)
+        return InferenceEngine(model, devices[0], transfer_dtype=np.int16,
+                               pileup_compact=True, devices=devices)
+    engine = InferenceEngine(model, devices[0], transfer_dtype=np.int8,
+                             depth_crop=True, fa_compact=True, devices=devices)
     engine.fa_input_channels = model.input_channels
     return engine
 
@@ -467,8 +473,11 @@ def cmd_call(args: argparse.Namespace) -> int:
 
 def _run_call(args: argparse.Namespace, dist_id: int, dist_count: int) -> int:
     """``call`` once its inputs are validated (and, under ``--dist_*``, the
-    process group is joined): process ``dist_id`` of ``dist_count`` calls
-    its own chunks on its own GPU (``cuda:{dist_id % device_count}``)."""
+    process group is joined).  A lone process on ``--device cuda`` splits
+    each engine batch over every visible card (``CUDA_VISIBLE_DEVICES``
+    narrows them); process ``dist_id`` of ``dist_count`` calls its own
+    chunks on its own card alone (``cuda:{dist_id % device_count}``), the
+    port's rule for processes that share a host."""
     from clair3_tpu_torch.config import CallConfig
     from clair3_tpu_torch.pipeline.call import VariantCaller
 
@@ -520,6 +529,9 @@ def _run_call(args: argparse.Namespace, dist_id: int, dist_count: int) -> int:
             return 1
         dt = resolve_compute_dtype(args.compute_dtype, device)
         pileup_engine = _load_engine(pileup_path, "pileup", device, dt)
+        logging.getLogger(__name__).info(
+            "[engine] each batch split over %d device(s): %s", len(pileup_engine.devices),
+            ", ".join(map(str, pileup_engine.devices)))
         fa_engine = None
         if not args.pileup_only:
             fa_engine = _load_engine(fa_path, "full_alignment", device, dt)

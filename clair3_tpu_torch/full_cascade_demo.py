@@ -2,7 +2,8 @@
 ``scripts/full_cascade_demo.py``: train BOTH nets from scratch on simulated
 data on ``--device`` (default ``cuda``), then call a held-out region through
 the port's production loader (``cli._load_engine``: the pileup net through
-its kernels, at bf16 on a GPU) with the complete two-stage pipeline, and
+its kernels, at bf16 on a GPU, each batch split over every visible card)
+with the complete two-stage pipeline, and
 score genotype-exact SNP/INDEL F1 against the simulation's truth.
 
     python -m clair3_tpu_torch.full_cascade_demo OUT [hifi|ont] [--device cpu]

@@ -6,7 +6,8 @@ one-device forward check and a multi-rank dry run.
 
 ``entry`` runs on ``cuda`` unless asked for the CPU.  ``dryrun_multichip``,
 like its JAX original (which forces N virtual CPU devices), is a dry run on
-the CPU by design: N gloo ranks, each an OS process (``parallel/mesh.py``).
+the CPU by design: N gloo ranks, each an OS process (``parallel/mesh.py``),
+for the training step, and N CPU replicas of one engine for inference.
 """
 
 from __future__ import annotations
@@ -57,8 +58,10 @@ def _dryrun_batch(n_devices: int):
 
 def _dryrun_rank(n_devices: int, device: torch.device) -> None:
     """One rank of ``dryrun_multichip``: a DDP training step of the FA net
-    on this rank's shard of the global batch, a sharded engine prediction
-    gathered over the ranks, and on rank 0 the miniature cascade."""
+    on this rank's shard of the global batch; then on rank 0 the JAX dry
+    run's inference: one engine batch sharded over ``n_devices`` replicas of
+    the trained net on this rank's device, and the miniature cascade on
+    engines over the same devices."""
     import torch.distributed as dist
 
     from clair3_tpu_torch.models import FullAlignmentNet
@@ -82,27 +85,31 @@ def _dryrun_rank(n_devices: int, device: torch.device) -> None:
                       torch.from_numpy(ys).to(device),
                       torch.Generator(device=device).manual_seed(1), add_indel_length=True)
 
-    # the sharded inference batch: each rank predicts its rows through the
-    # engine the calling pipeline uses, and the ranks gather them
-    engine = InferenceEngine(net.eval(), device, buckets=(len(xs),))
-    part = torch.from_numpy(engine.predict(xs))
-    parts = [torch.empty_like(part) for _ in range(world)]
-    dist.all_gather(parts, part)
-    probs = torch.cat(parts)[:B]
-    assert probs.shape == (B, 90), probs.shape
-
     if rank == 0:
-        rows = _miniature_cascade(net, n_devices, device)
+        # the sharded inference batch through the engine the calling
+        # pipeline uses: B rows split over n_devices replicas of the trained
+        # weights (a fresh net: the trained one carries DDP's hooks, which
+        # do not copy)
+        trained = FullAlignmentNet(add_indel_length=True)
+        trained.load_state_dict(net.state_dict())
+        devices = [device] * n_devices
+        engine = InferenceEngine(trained.to(device), device, buckets=(B,), devices=devices)
+        probs = engine.predict(x_np)
+        assert probs.shape == (B, 90), probs.shape
+        print(f"[dryrun_multichip] engine batch of {B} rows over {len(engine.devices)} "
+              f"devices ({engine.devices[0]}), {B // len(engine.devices)} rows each",
+              flush=True)
+        rows = _miniature_cascade(trained, n_devices, devices)
         print(f"[dryrun_multichip] n_devices={n_devices} loss={loss:.4f} "
               f"infer={tuple(probs.shape)} cascade_rows={rows} ok", flush=True)
     dist.barrier()
 
 
-def _miniature_cascade(fa_net, n_devices: int, device: torch.device) -> int:
+def _miniature_cascade(fa_net, n_devices: int, devices) -> int:
     """The JAX dry run's miniature cascade: a 4 kb simulated case through
     the production ``VariantCaller`` with both nets (a seeded ``PileupNet``
-    and the FA net after its training step); returns the merged VCF's row
-    count."""
+    and the FA net after its training step), each engine over ``devices``;
+    returns the merged VCF's row count."""
     import gzip
     import tempfile
 
@@ -127,9 +134,10 @@ def _miniature_cascade(fa_net, n_devices: int, device: torch.device) -> int:
         pileup = PileupNet(add_indel_length=False)
         init_weights(pileup, torch.Generator().manual_seed(2))
         buckets = (max(2 * n_devices, 8),)
-        p_engine = InferenceEngine(pileup.to(device), device, buckets=buckets,
-                                   transfer_dtype=np.int16)
-        fa_engine = InferenceEngine(fa_net.eval(), device, buckets=buckets)
+        p_engine = InferenceEngine(pileup.to(devices[0]), devices[0], buckets=buckets,
+                                   transfer_dtype=np.int16, devices=devices)
+        fa_engine = InferenceEngine(fa_net.eval(), devices[0], buckets=buckets,
+                                    devices=devices)
         fa_engine.fa_input_channels = 8
 
         cfg = CallConfig(platform="hifi", bam_fn=bam, ref_fn=fasta,
@@ -145,8 +153,10 @@ def dryrun_multichip(n_devices: int) -> None:
     """The counterpart of ``__graft_entry__.dryrun_multichip``: ``n_devices``
     gloo ranks on the CPU, each an OS process (``parallel/mesh.py``), take
     one data-parallel training step of the FA net on the padded global batch
-    (``B = max(2n, 8)``), predict one engine batch sharded over the ranks,
-    and rank 0 runs the miniature cascade; rank 0 prints
+    (``B = max(2n, 8)``); rank 0 then predicts that batch through an
+    ``InferenceEngine`` over ``n_devices`` CPU replicas and runs the
+    miniature cascade on engines over the same devices, as the JAX dry run
+    does on its mesh, and prints
     ``[dryrun_multichip] n_devices=... loss=... infer=... cascade_rows=... ok``."""
     from clair3_tpu_torch.parallel.mesh import spawn_ranks
 

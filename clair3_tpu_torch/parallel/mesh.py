@@ -1,5 +1,10 @@
-"""Data-parallel training over ``torch.distributed``: the port's counterpart
-of ``clair3_tpu/parallel/mesh.py``.
+"""The port's counterpart of ``clair3_tpu/parallel/mesh.py``: the local
+devices an inference engine shards its batches over, and data-parallel
+training over ``torch.distributed``.
+
+``local_devices`` is ``get_mesh(local=True)`` (and ``get_mesh(n_devices=...)``):
+``pipeline/engine.py::InferenceEngine`` splits each batch by rows over
+them, one replica of the net per device.
 
 The JAX package trains on one jit program over a 1-D ``Mesh`` of every
 process's devices (``get_mesh(local=False)``): the parameters replicated,
@@ -28,13 +33,29 @@ from __future__ import annotations
 import os
 import socket
 from datetime import timedelta
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from clair3_tpu_torch.device import resolve_device
+
 # ranks reach a collective after unequal host work (checkpoints, data)
 TIMEOUT = timedelta(seconds=1800)
+
+
+def local_devices(device, n_devices: Optional[int] = None) -> List[torch.device]:
+    """This process's devices of ``device``'s kind, each with its index:
+    ``cuda`` gives every visible card (``cuda:0`` ... ``cuda:{count - 1}``;
+    ``CUDA_VISIBLE_DEVICES`` narrows them), ``cuda:k`` that card alone,
+    ``cpu`` ``[cpu]``; ``n_devices`` keeps the first n.  ``cuda`` with no
+    visible card raises, as ``device.resolve_device`` does."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    return devices if n_devices is None else devices[:n_devices]
 
 
 def pad_to_multiple(x: np.ndarray, multiple: int) -> tuple:

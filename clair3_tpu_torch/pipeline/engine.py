@@ -4,11 +4,14 @@
 * candidate tensors stream in from the host extractors;
 * batches are cut at the largest bucket and zero-padded to a small set of
   static bucket sizes, as the JAX engine does;
-* one submitter thread copies each batch to the device (from pinned host
-  memory, on the engine's own CUDA stream) and runs the net there, so the
-  caller can decode batch i-1 while batch i is in flight;
+* each padded batch is split by rows over the engine's devices, as the JAX
+  engine shards it over its mesh's data axis: one replica of the net per
+  device, the bucket sizes rounded to multiples of the device count;
+* one submitter thread copies each shard to its device (from pinned host
+  memory, on that replica's own CUDA stream) and runs the replica there, so
+  the caller can decode batch i-1 while batch i is in flight;
 * probabilities come back to pinned host memory, and ``gather`` waits for
-  them.
+  every shard and joins them in device order.
 
 Wire forms, in the JAX engine's routing order (``_wire_form``): with
 ``fa_compact``, a full-alignment batch crosses as its sparse pack (native
@@ -20,7 +23,10 @@ full alignment).  With ``depth_crop`` only the centred band of non-empty
 depth rows crosses, and the device pads it back to the full depth.  Every
 form is an exact re-encoding of the batch, rebuilt on the device before
 the net (``ops/pileup_compact.py``, ``ops/fa_compact.py``, which also hold
-the host packers, numpy and native).
+the host packers, numpy and native).  The form, the depth band, the sparse
+pack's K bucket and the pad are decided once per batch, before it is split,
+as the JAX engine decides them before ``device_put``: the bytes shipped are
+the JAX engine's for the same batches, whatever the device count.
 
 The pileup high-coverage rescale (``rescale_high_coverage_pileup``) is the
 JAX engine's, copied; ``pipeline/call.py`` takes it from here.
@@ -28,6 +34,7 @@ JAX engine's, copied; ``pipeline/call.py`` takes it from here.
 
 from __future__ import annotations
 
+import copy
 import os
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -52,6 +59,14 @@ _TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8,
 DENSE, FA_SPARSE, FA_V1, PILEUP_COMPACT = "dense", "fa_sparse", "fa_v1", "pileup_compact"
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with an explicit index when it is a CUDA device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _pad_to_bucket(planes: Dict[str, np.ndarray], m: int, bucket: int) -> Dict[str, np.ndarray]:
     """Zero-pad every plane from ``m`` to ``bucket`` rows."""
     if m >= bucket:
@@ -61,34 +76,48 @@ def _pad_to_bucket(planes: Dict[str, np.ndarray], m: int, bucket: int) -> Dict[s
 
 
 class InferenceEngine:
-    """Batch forward of one net on one device.
+    """Batch forward of one net, data-sharded over one or more devices.
 
-    ``model`` is an ``nn.Module`` already on ``device``; ``transfer_dtype``
-    is the numpy dtype of a dense host->device copy (the net widens it to
-    its compute dtype on the device).  ``depth_crop``, ``fa_compact`` and
-    ``pileup_compact`` are the JAX engine's options of the same names."""
+    ``model`` is an ``nn.Module`` already on ``device``; ``devices`` (a
+    sequence of ``torch.device``, repeats allowed; default ``[device]``)
+    are the devices each batch is split over, the counterpart of the JAX
+    engine's mesh (``parallel.mesh.local_devices``).  The first replica is
+    ``model`` itself, every further entry a deep copy moved to its device,
+    so each replica keeps its own packed kernel operands.
+    ``transfer_dtype`` is the numpy dtype of a dense host->device copy (the
+    net widens it to its compute dtype on the device).  ``depth_crop``,
+    ``fa_compact`` and ``pileup_compact`` are the JAX engine's options of
+    the same names."""
 
     def __init__(self, model: torch.nn.Module, device: torch.device,
                  buckets: Sequence[int] = _DEFAULT_BUCKETS,
                  transfer_dtype=None, depth_crop: bool = False,
-                 fa_compact: bool = False, pileup_compact: bool = False):
+                 fa_compact: bool = False, pileup_compact: bool = False,
+                 devices: Optional[Sequence[torch.device]] = None):
+        # a CUDA device without an index would follow the thread's current
+        # device, which the kernel libraries set behind torch's back
+        self.devices = tuple(_indexed(d) for d in (devices or (device,)))
+        self.device = self.devices[0]
         self.model = model.eval()
-        self.device = torch.device(device)
-        self.buckets = tuple(sorted(buckets))
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d).eval()
+                                        for d in self.devices[1:]]
+        n = len(self.devices)
+        # every bucket splits evenly over the devices (the JAX engine's rule)
+        self.buckets = tuple(sorted(max(b, n) - (max(b, n) % n) or n for b in buckets))
         self.transfer_dtype = transfer_dtype
         self.depth_crop = depth_crop
         self.fa_compact = fa_compact
         self.pileup_compact = pileup_compact
-        # bytes handed to the host->device copy (post pack/pad), on the
-        # submitter thread; dense_bytes: what the dense form of the same
-        # padded batches would have shipped, for comparison
+        # bytes handed to the host->device copies (post pack/pad, over every
+        # shard), on the submitter thread; dense_bytes: what the dense form
+        # of the same padded batches would have shipped, for comparison
         self.bytes_shipped = 0
         self.dense_bytes = 0
         self.fa_input_channels: Optional[int] = None
         # the forward's name in a torch.profiler trace
         self._label = f"{type(model).__name__}.forward"
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self.devices]
         self._submitter = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="engine-submit")
         self._warmup: Optional[Future] = None
@@ -176,12 +205,12 @@ class InferenceEngine:
                 return PILEUP_COMPACT, packed, None
         return DENSE, {"x": chunk}, full_depth
 
-    def _host_plane(self, plane: np.ndarray) -> torch.Tensor:
-        """A plane as a host tensor, in pinned memory when the device is a
+    def _host_plane(self, plane: np.ndarray, device: torch.device) -> torch.Tensor:
+        """A plane as a host tensor, in pinned memory when ``device`` is a
         GPU; uint16 crosses as the same bytes viewed as int16."""
         if plane.dtype == np.uint16:
             plane = plane.view(np.int16)
-        if self._stream is None:
+        if device.type != "cuda":
             return torch.from_numpy(np.ascontiguousarray(plane))
         host = torch.empty(plane.shape, dtype=_TORCH_DTYPE[plane.dtype], pin_memory=True)
         host.numpy()[...] = plane
@@ -204,24 +233,40 @@ class InferenceEngine:
             x = F.pad(x, (0, 0, 0, 0, top, full_depth - x.shape[1] - top))
         return x
 
-    def _put_and_forward(self, chunk: np.ndarray, bucket: int):
+    def _put_and_forward(self, chunk: np.ndarray, bucket: int) -> List[Tuple]:
+        """One chunk: its wire form, band, K bucket and pad decided once,
+        then its rows split into one equal shard per device; returns each
+        shard's ``(probabilities, event)`` in device order."""
         form, planes, full_depth = self._wire_form(chunk)
         planes = _pad_to_bucket(planes, chunk.shape[0], bucket)
         self.bytes_shipped += sum(v.nbytes for v in planes.values())
         self.dense_bytes += (bucket * int(np.prod(chunk.shape[1:]))
                              * np.dtype(self.transfer_dtype or chunk.dtype).itemsize)
-        host = {k: self._host_plane(v) for k, v in planes.items()}
-        if self._stream is None:
+        rows = bucket // len(self.devices)
+        return [self._forward_shard(i, form, {k: v[i * rows: (i + 1) * rows]
+                                              for k, v in planes.items()}, full_depth)
+                for i in range(len(self.devices))]
+
+    def _forward_shard(self, i: int, form: str, planes: Dict[str, np.ndarray],
+                       full_depth: Optional[int]):
+        """Replica ``i``'s shard on its device: the pinned copy, the unpack,
+        the forward and the copy back, all queued on the replica's stream
+        (one event recorded after them); on the CPU, done in place."""
+        net, device, stream = self.replicas[i], self.devices[i], self._streams[i]
+        host = {k: self._host_plane(v, device) for k, v in planes.items()}
+        if stream is None:
             with torch.inference_mode(), record_function(self._label):
-                return self.model(self._net_input(form, host, full_depth)), None
-        with torch.cuda.stream(self._stream), torch.inference_mode():
-            dev = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+                return net(self._net_input(form, host, full_depth)), None
+        # the device too: a kernel library may have set another current
+        # device on this thread, and unindexed allocations follow it
+        with torch.cuda.device(device), torch.cuda.stream(stream), torch.inference_mode():
+            dev = {k: v.to(device, non_blocking=True) for k, v in host.items()}
             with record_function(self._label):
-                y = self.model(self._net_input(form, dev, full_depth))
+                y = net(self._net_input(form, dev, full_depth))
             out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
             out.copy_(y, non_blocking=True)
             done = torch.cuda.Event()
-            done.record(self._stream)
+            done.record(stream)
         return out, done
 
     def predict_async(self, x: np.ndarray) -> List:
@@ -242,10 +287,11 @@ class InferenceEngine:
             return _EMPTY.copy()
         out = []
         for fut, m in handles:
-            y, done = fut.result()
-            if done is not None:
-                done.synchronize()
-            out.append(y.float().numpy()[:m])
+            shards = fut.result()
+            for _, done in shards:
+                if done is not None:
+                    done.synchronize()
+            out.append(np.concatenate([y.float().numpy() for y, _ in shards])[:m])
         return np.concatenate(out, axis=0)
 
     def predict(self, x: np.ndarray) -> np.ndarray:
@@ -275,15 +321,16 @@ class InferenceEngine:
         return batches
 
     def warmup(self, input_shape, dtype) -> None:
-        """Run every route once on a GPU (``warmup_batches``), so the
-        kernel build, the library initialisation and each route's first
-        launches happen before the first real batch.  On the CPU there is
-        nothing to prepare."""
-        if self._stream is None:
+        """Run every route once on every GPU replica (``warmup_batches``),
+        so the kernel build, the library initialisation and each route's
+        first launches happen before the first real batch.  On the CPU
+        there is nothing to prepare."""
+        if all(s is None for s in self._streams):
             return
         for x in self.warmup_batches(input_shape, dtype):
-            _, done = self._put_and_forward(x, self.buckets[0])
-            done.synchronize()
+            for _, done in self._put_and_forward(x, self.buckets[0]):
+                if done is not None:
+                    done.synchronize()
 
     def warmup_async(self, input_shape, dtype) -> Future:
         """Queue ``warmup`` on the submitter thread, ahead of any batch."""

@@ -7,7 +7,8 @@
    h5py imports, else the same arrays in memory),
 3. train a real PileupNet for a few hundred steps,
 4. call variants on the held-out EVAL region with the trained model
-   through the port CLI's engine (bf16 and the pileup kernels on a GPU),
+   through the port CLI's engine (bf16 and the pileup kernels on a GPU,
+   each batch split over every visible card),
 5. score SNP/Indel precision/recall/F1 against the simulated truth.
 
     python -m clair3_tpu_torch.quick_demo [output_dir] [--device cpu]

@@ -341,7 +341,8 @@ def build_server(model_path: str, platform: str = "ont",
                  fa_prefix: str = "full_alignment",
                  device: str = "cuda") -> EngineServer:
     """Load `cli call`'s production engines on ``device`` and wrap them in
-    a server; ``cuda`` raises when no GPU is visible."""
+    a server; ``cuda`` splits each batch over every visible card, and
+    raises when no GPU is visible."""
     from clair3_tpu_torch.cli import _load_engine, resolve_compute_dtype, resolve_model_file
     from clair3_tpu_torch.device import resolve_device
 

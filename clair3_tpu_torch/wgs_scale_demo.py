@@ -140,7 +140,8 @@ def build_production_engines(pileup_model: str, fa_model: str, device="cuda",
                              compute_dtype: str = "auto"):
     """The port CLI's shipped engine configuration (bf16 and the pileup
     kernels on a GPU, compact wire forms, the FA depth crop) carrying
-    TRAINED checkpoints, on ``device``."""
+    TRAINED checkpoints, on ``device``: with ``cuda`` each batch is split
+    over every visible card (``cli._load_engine``)."""
     from clair3_tpu_torch.cli import _load_engine, resolve_compute_dtype
 
     dev = resolve_device(device)

@@ -95,7 +95,8 @@ EDITED = {
          '                 fa_prefix: str = "full_alignment",\n'
          '                 device: str = "cuda") -> EngineServer:\n'
          '    """Load `cli call`\'s production engines on ``device`` and wrap them in\n'
-         '    a server; ``cuda`` raises when no GPU is visible."""\n'
+         '    a server; ``cuda`` splits each batch over every visible card, and\n'
+         '    raises when no GPU is visible."""\n'
          "    from clair3_tpu_torch.cli import _load_engine, resolve_compute_dtype, resolve_model_file\n"
          "    from clair3_tpu_torch.device import resolve_device\n\n"
          "    dev = resolve_device(device)\n"

@@ -6,8 +6,9 @@ against ``__graft_entry__.py``, on the CPU:
   entry's input, equal to the JAX ``entry()``'s ``fn`` on the port net's
   weights carried across by the bridge, within 1e-4 (the FA net's f32
   bound; the two conv libraries sum in other orders);
-* ``dryrun_multichip(8)``, eight gloo ranks each an OS process, prints its
-  ok line (its training loss finite, the gathered batch ``(16, 90)``).
+* ``dryrun_multichip(8)``, eight gloo ranks each an OS process for the
+  training step, prints its ok line (its training loss finite, the engine
+  batch ``(16, 90)``) after the engine batch ran over eight CPU replicas.
 """
 
 import os
@@ -43,6 +44,8 @@ def test_dryrun_multichip_8_ranks():
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
+    assert re.search(r"^\[dryrun_multichip\] engine batch of 16 rows over 8 devices \(cpu\), "
+                     r"2 rows each$", proc.stdout, re.M), proc.stdout[-3000:]
     m = re.search(r"^\[dryrun_multichip\] n_devices=8 loss=(\S+) infer=\(16, 90\) "
                   r"cascade_rows=(\d+) ok$", proc.stdout, re.M)
     assert m, proc.stdout[-3000:]

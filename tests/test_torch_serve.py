@@ -208,6 +208,41 @@ def test_serve_on_cuda_raises_without_a_gpu(tmp_path):
         build_server(str(tmp_path))
 
 
+def test_server_over_two_replicas_answers_as_one_device(monkeypatch):
+    """A server whose engines span two CPU replicas (``build_server`` with
+    ``local_devices`` made to give two, as it gives every card on a GPU
+    host) answers with the rows of a one-device server: probabilities within
+    1e-6 (the CPU's matmul blocking follows the batch size) and the same
+    calls."""
+    from clair3_tpu_torch import cli
+
+    models = dict(pileup_model=trained_fixture_path("pileup_hifi.npz"),
+                  fa_model=trained_fixture_path("fa_hifi.npz"))
+    one = build_server(None, platform="hifi", compute_dtype="fp32", port=0, device="cpu",
+                       **models)
+    monkeypatch.setattr(cli, "local_devices", lambda device, n_devices=None: [CPU, CPU])
+    two = build_server(None, platform="hifi", compute_dtype="fp32", port=0, device="cpu",
+                       **models)
+    assert {k: e.devices for k, e in two.engines.items()} == {
+        "pileup": (CPU, CPU), "full_alignment": (CPU, CPU)}
+    assert all(e.devices == (CPU,) for e in one.engines.values())
+    rng = np.random.default_rng(4)
+    batches = {"pileup": rng.integers(-30, 30, (17, 33, 18)).astype(np.int32),
+               "full_alignment": rng.integers(-100, 100, (9, 55, 33, 8)).astype(np.int8)}
+    for server in (one, two):
+        server.serve_background()
+    try:
+        for kind, x in batches.items():
+            want = RemoteEngine(one.address, kind, platform="hifi").predict(x)
+            got = RemoteEngine(two.address, kind, platform="hifi").predict(x)
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6, err_msg=kind)
+            assert (got.argmax(axis=1) == want.argmax(axis=1)).all(), kind
+            assert two.engines[kind].bytes_shipped == one.engines[kind].bytes_shipped
+    finally:
+        one.shutdown()
+        two.shutdown()
+
+
 def test_serve_subcommand_answers_a_client():
     """`python -m clair3_tpu_torch serve --device cpu` in its own process
     loads and warms the engines, then answers a port client."""
