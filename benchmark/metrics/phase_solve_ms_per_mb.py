@@ -1,0 +1,14 @@
+"""The phaser's solve of each contig: the greedy sweep and both MEC
+refinements, and the rescue of phase sets across blocks (the program's
+``phase.mec`` and ``phase.rescue`` spans, whose seconds ``VariantCaller.run``
+puts in ``stage_times`` under those names), summed over the window's
+passes, per megabase called."""
+
+NAMES = ("phase.mec", "phase.rescue")
+
+
+def read(rec):
+    if not any(n in p["stage_times"] for p in rec["passes"] for n in NAMES):
+        return None
+    mb = rec["bp_per_pass"] * len(rec["passes"]) / 1e6
+    return sum(p["stage_times"].get(n, 0.0) for p in rec["passes"] for n in NAMES) / mb * 1e3

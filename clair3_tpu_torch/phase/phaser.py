@@ -22,6 +22,11 @@ long-read chain reduction both tools rely on:
 
 Output rows carry ``GT:PS`` with ``0|1`` meaning hap1=ref (genotype code 1
 in the FA extractor) and ``1|0`` meaning hap1=alt (code 2).
+
+``ReadBackedPhaser.phase`` opens one span (``clair3_tpu_torch.spans``) per
+step of a contig: ``phase.reads`` (fetch, decode and allele scan of its reads),
+``phase.mec`` (the greedy sweep with the first refinement, and the second
+refinement) and ``phase.rescue`` (``rescue_phase_sets``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from clair3_tpu_torch.io.bam import BamRead, BamReader
 from clair3_tpu_torch.io.vcf import VcfRecord
+from clair3_tpu_torch.spans import span
 
 MIN_PHASING_MQ = 20
 
@@ -180,42 +186,46 @@ class ReadBackedPhaser:
         # the full fragments for the MEC refinement pass
         edge_votes: Dict[Tuple[int, int], int] = defaultdict(int)
         fragments: List[List[Tuple[int, int]]] = []
-        bam = BamReader(self.bam_fn)
-        for read in bam.fetch(ctg_name, positions[0], positions[-1] + 1,
-                              min_mq=self.min_mq):
-            alleles = read_alleles_at_snps(read, positions, snp_ref, snp_alt)
-            for (p1, a1), (p2, a2) in zip(alleles, alleles[1:]):
-                i, j = index[p1], index[p2]
-                edge_votes[(i, j)] += 1 if a1 == a2 else -1
-            if len(alleles) >= 2:
-                fragments.append([(index[p], a) for p, a in alleles])
+        with span("phase.reads"):
+            bam = BamReader(self.bam_fn)
+            for read in bam.fetch(ctg_name, positions[0], positions[-1] + 1,
+                                  min_mq=self.min_mq):
+                alleles = read_alleles_at_snps(read, positions, snp_ref, snp_alt)
+                for (p1, a1), (p2, a2) in zip(alleles, alleles[1:]):
+                    i, j = index[p1], index[p2]
+                    edge_votes[(i, j)] += 1 if a1 == a2 else -1
+                if len(alleles) >= 2:
+                    fragments.append([(index[p], a) for p, a in alleles])
 
-        # incoming edges per SNP for the left-to-right sweep
-        incoming: Dict[int, List[Tuple[int, int]]] = defaultdict(list)
-        for (i, j), w in edge_votes.items():
-            incoming[j].append((i, w))
+        with span("phase.mec"):
+            # incoming edges per SNP for the left-to-right sweep
+            incoming: Dict[int, List[Tuple[int, int]]] = defaultdict(list)
+            for (i, j), w in edge_votes.items():
+                incoming[j].append((i, w))
 
-        hap: List[Optional[int]] = [None] * len(snps)
-        phase_set: List[int] = [0] * len(snps)
-        current_ps = snps[0].pos
-        hap[0] = 0
-        phase_set[0] = current_ps
-        for j in range(1, len(snps)):
-            vote = 0
-            for i, w in incoming[j]:
-                if hap[i] is not None:
-                    vote += w * (1 - 2 * hap[i])
-            if vote == 0:
-                # unconnected (or perfectly ambiguous): new phase set
-                current_ps = snps[j].pos
-                hap[j] = 0
-            else:
-                hap[j] = 0 if vote > 0 else 1
-            phase_set[j] = current_ps
+            hap: List[Optional[int]] = [None] * len(snps)
+            phase_set: List[int] = [0] * len(snps)
+            current_ps = snps[0].pos
+            hap[0] = 0
+            phase_set[0] = current_ps
+            for j in range(1, len(snps)):
+                vote = 0
+                for i, w in incoming[j]:
+                    if hap[i] is not None:
+                        vote += w * (1 - 2 * hap[i])
+                if vote == 0:
+                    # unconnected (or perfectly ambiguous): new phase set
+                    current_ps = snps[j].pos
+                    hap[j] = 0
+                else:
+                    hap[j] = 0 if vote > 0 else 1
+                phase_set[j] = current_ps
 
-        hap = refine_mec(hap, fragments)
-        hap, phase_set = rescue_phase_sets(hap, phase_set, fragments)
-        hap = refine_mec(hap, fragments)
+            hap = refine_mec(hap, fragments)
+        with span("phase.rescue"):
+            hap, phase_set = rescue_phase_sets(hap, phase_set, fragments)
+        with span("phase.mec"):
+            hap = refine_mec(hap, fragments)
 
         out: List[VcfRecord] = []
         for rec, h, ps in zip(snps, hap, phase_set):

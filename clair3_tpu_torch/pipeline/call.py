@@ -12,10 +12,21 @@ pipeline:
 
 Extraction runs on host threads; the device sees fixed-shape batches through
 InferenceEngine.  Decode is plain Python on the host.
+
+Each stage is a ``call.<stage>`` span of ``torch.profiler`` whose duration
+also lands in ``VariantCaller.stage_times[<stage>]``; inside the stages,
+spans (``clair3_tpu_torch.spans``) name the extraction on the pool threads
+(``pileup.extract``, ``fa.extract``), the calling thread's wait for it
+(``*.extract_wait``), each decode (``*.decode``), the VCF writer and its
+index (``vcf.write``, ``vcf.index``) and the phaser's het-SNP selection
+(``phase.select``); with the phaser's and the engines' own spans, their
+seconds land in ``stage_times`` under the span's name.  One span per stage,
+chunk, batch or contig: with the profiler off they cost microseconds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -25,7 +36,9 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
+from clair3_tpu_torch import spans as host_spans
 from clair3_tpu_torch.config import CallConfig, NO_OF_POSITIONS
 from clair3_tpu_torch.decode import (DecodeConfig, batch_decode,
                                batch_decode_parallel, shutdown_decode_pool)
@@ -204,23 +217,24 @@ class VariantCaller:
                     return False
                 return True
 
-        tensors, pos_infos, alt_infos, res = create_pileup_tensors(
-            self.cfg.bam_fn,
-            self.cfg.ref_fn,
-            task.contig,
-            task.start,
-            task.end,
-            min_mq=self.cfg.min_mq,
-            min_depth=self.cfg.min_coverage,
-            min_snp_af=self.cfg.snp_min_af,
-            min_indel_af=self.cfg.indel_min_af,
-            max_indel_length=self.cfg.max_indel_length,
-            call_snp_only=self.cfg.call_snp_only,
-            gvcf=self.cfg.gvcf,
-            head_tail=self.cfg.enable_variant_calling_at_sequence_head_and_tail,
-            threads=per_call,
-            positions_filter=positions_filter,
-        )
+        with host_spans.span("pileup.extract"):
+            tensors, pos_infos, alt_infos, res = create_pileup_tensors(
+                self.cfg.bam_fn,
+                self.cfg.ref_fn,
+                task.contig,
+                task.start,
+                task.end,
+                min_mq=self.cfg.min_mq,
+                min_depth=self.cfg.min_coverage,
+                min_snp_af=self.cfg.snp_min_af,
+                min_indel_af=self.cfg.indel_min_af,
+                max_indel_length=self.cfg.max_indel_length,
+                call_snp_only=self.cfg.call_snp_only,
+                gvcf=self.cfg.gvcf,
+                head_tail=self.cfg.enable_variant_calling_at_sequence_head_and_tail,
+                threads=per_call,
+                positions_filter=positions_filter,
+            )
         # window slicing is done; only the gVCF count arrays are consumed
         # downstream — drop the dense [L,18] matrix so the bounded-prefetch
         # window holds MBs per chunk, not the ~380 MB counts of a 5 Mb chunk
@@ -229,11 +243,12 @@ class VariantCaller:
         return tensors, pos_infos, alt_infos, res
 
     @staticmethod
-    def _bounded_map(pool, fn, items, window: int):
+    def _bounded_map(pool, fn, items, window: int, wait_span: str):
         """Ordered pool.map with a bounded submission window.  Eager
         ``pool.map`` schedules every chunk up front, so on a whole genome
         the extracted-but-unconsumed tensors of hundreds of chunks pile up
-        in completed futures; this caps in-flight work at ``window``."""
+        in completed futures; this caps in-flight work at ``window``.
+        Each wait on the head is a ``wait_span`` span."""
         from collections import deque
 
         futs = deque()
@@ -251,7 +266,9 @@ class VariantCaller:
         while futs:
             item, fut = futs.popleft()
             fill()  # keep workers busy while we block on the head
-            yield item, fut.result()
+            with host_spans.span(wait_span):
+                result = fut.result()
+            yield item, result
 
     def run_pileup(self, tasks: Sequence[ChunkTask]) -> List[str]:
         """Pileup-call all chunks; returns unsorted VCF body rows.  When
@@ -300,7 +317,7 @@ class VariantCaller:
         with ThreadPoolExecutor(max_workers=max(1, self.cfg.threads)) as pool:
             for task, (tensors, pos_infos, alt_infos, res) in self._bounded_map(
                 pool, self._extract_pileup_chunk, tasks,
-                window=max(2, self.cfg.threads + 1),
+                window=max(2, self.cfg.threads + 1), wait_span="pileup.extract_wait",
             ):
                 if gvcf_writer is not None and res.pos_ref_count is not None:
                     ref_seq = fa.fetch(task.contig, task.start - 1, task.end)
@@ -364,9 +381,10 @@ class VariantCaller:
         if not hasattr(engine, "predict_async"):
             probs = engine.predict(tensors)
             self._dump_probabilities(pos_infos, alt_infos, probs)
-            rows.extend(batch_decode_parallel(
-                pos_infos, alt_infos, probs, decode_cfg,
-                processes=self.cfg.threads))
+            with host_spans.span(self._decode_span(decode_cfg)):
+                rows.extend(batch_decode_parallel(
+                    pos_infos, alt_infos, probs, decode_cfg,
+                    processes=self.cfg.threads))
             return None
         handles = engine.predict_async(tensors)
         if pending is not None:
@@ -379,8 +397,13 @@ class VariantCaller:
         pos_infos, alt_infos, handles = pending
         probs = engine.gather(handles)
         self._dump_probabilities(pos_infos, alt_infos, probs)
-        return batch_decode_parallel(pos_infos, alt_infos, probs, decode_cfg,
-                                     processes=self.cfg.threads)
+        with host_spans.span(self._decode_span(decode_cfg)):
+            return batch_decode_parallel(pos_infos, alt_infos, probs, decode_cfg,
+                                         processes=self.cfg.threads)
+
+    @staticmethod
+    def _decode_span(decode_cfg) -> str:
+        return "pileup.decode" if decode_cfg.pileup else "fa.decode"
 
     def _dump_probabilities(self, pos_infos, alt_infos, probs) -> None:
         """Debug hook: append raw head probabilities per candidate
@@ -434,22 +457,24 @@ class VariantCaller:
         rows: List[str] = []
 
         def _extract(batch: CandidateBatch):
-            return create_fa_tensors(
-                self.cfg.bam_fn,
-                self.cfg.ref_fn,
-                batch.contig,
-                batch.positions,
-                phased_snps=batch.phased_snps,
-                matrix_depth=self.cfg.matrix_depth,
-                min_mq=self.cfg.min_mq,
-                no_phasing=self.cfg.no_phasing_for_fa,
-                enable_dwell=self.cfg.enable_dwell_time,
-            )
+            with host_spans.span("fa.extract"):
+                return create_fa_tensors(
+                    self.cfg.bam_fn,
+                    self.cfg.ref_fn,
+                    batch.contig,
+                    batch.positions,
+                    phased_snps=batch.phased_snps,
+                    matrix_depth=self.cfg.matrix_depth,
+                    min_mq=self.cfg.min_mq,
+                    no_phasing=self.cfg.no_phasing_for_fa,
+                    enable_dwell=self.cfg.enable_dwell_time,
+                )
 
         pending = None
         with ThreadPoolExecutor(max_workers=max(1, self.cfg.threads)) as pool:
             for _, (tensors, pos_infos, alt_infos) in self._bounded_map(
                 pool, _extract, batches, window=max(2, self.cfg.threads + 1),
+                wait_span="fa.extract_wait",
             ):
                 if tensors.shape[0] == 0:
                     continue
@@ -469,12 +494,14 @@ class VariantCaller:
             gvcf=False,
             contigs=contigs or getattr(self, "_contigs", None),
         )
-        with VcfWriter(path, header, threads=self.cfg.threads) as w:
-            w.write_rows(rows)
+        with host_spans.span("vcf.write"):
+            with VcfWriter(path, header, threads=self.cfg.threads) as w:
+                w.write_rows(rows)
         if path.endswith(".gz"):
             from clair3_tpu_torch.io.tabix import write_tabix_index
 
-            write_tabix_index(path)
+            with host_spans.span("vcf.index"):
+                write_tabix_index(path)
         return path
 
     def _write_gvcf(self, final_rows: Sequence[str]) -> Optional[str]:
@@ -656,15 +683,22 @@ class VariantCaller:
     def run(self) -> Dict[str, str]:
         """Execute the cascade; returns paths of the written VCFs.  Stage
         wall-times land in ``self.stage_times`` (observability; the
-        reference only had per-job logs from GNU parallel).
+        reference only had per-job logs from GNU parallel), and beside them
+        the seconds of each step span (``pileup.decode``, ``phase.reads``,
+        ``PileupNet.pack``, ...) closed during the call.
 
         Warmup threads are joined even on failure: a daemon thread killed
         mid-XLA-compile at interpreter exit SIGABRTs and masks the real
         error."""
+        self.stage_times: Dict[str, float] = {}
+        before = host_spans.totals()
         try:
             outputs = self._run_impl()
         finally:
-            self._join_warmups()
+            with self._timed("join"):
+                self._join_warmups()
+            # the steps inside the stages, on every thread of the process
+            self.stage_times.update(host_spans.seconds_since(before))
         if self.cfg.remove_intermediate_dir:
             # reference: clair3_c_impl_pipeline.py:711 removes tmp/ after a
             # successful run (CRAM-converted / ilmn-realigned BAMs here)
@@ -676,50 +710,49 @@ class VariantCaller:
                 shutil.rmtree(tmp_dir, ignore_errors=True)
         return outputs
 
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        """One stage: a ``call.<name>`` span on the profiler's clock, whose
+        ``perf_counter`` duration adds to ``stage_times[name]``."""
+        with record_function("call." + name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.stage_times[name] = (
+                    self.stage_times.get(name, 0.0) + time.perf_counter() - t0)
+
     def _run_impl(self) -> Dict[str, str]:
-        self.stage_times: Dict[str, float] = {}
-
-        def _timed(name):
-            class _T:
-                def __enter__(_s):
-                    _s.t0 = time.time()
-
-                def __exit__(_s, *exc):
-                    self.stage_times[name] = (
-                        self.stage_times.get(name, 0.0) + time.time() - _s.t0)
-
-            return _T()
-
         cfg = self.cfg
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        contigs = self.resolve_contigs()
-        self._contigs = contigs  # for ##contig header lines
-        # overlap jit compilation of all batch buckets with extraction
-        if hasattr(self.pileup_engine, "warmup_async"):
-            self.pileup_engine.warmup_async((NO_OF_POSITIONS, 18), np.int32)
-        if self.fa_engine is not None and hasattr(self.fa_engine, "warmup_async"):
-            self.fa_engine.warmup_async(
-                (self.cfg.matrix_depth, NO_OF_POSITIONS, self.cfg.fa_channels),
-                np.int8)
-        self._timed = _timed
-        contig_names = [c for c, _ in contigs]
-        chunk_size = cfg.chunk_size
-        if cfg.chunk_num is not None:
-            # CheckEnvs --chunk_num semantics: N chunks per contig
-            # (<=0: one whole-contig chunk)
-            n = max(1, cfg.chunk_num)
-            longest = max((l for _, l in contigs), default=1)
-            chunk_size = (longest + n - 1) // n if cfg.chunk_num > 0 else 1 << 40
-        tasks = plan_chunks(contigs, chunk_size)
-        if cfg.dist_process_count > 1:
-            from clair3_tpu_torch.parallel.distributed import own_tasks
+        with self._timed("plan"):
+            os.makedirs(cfg.output_dir, exist_ok=True)
+            contigs = self.resolve_contigs()
+            self._contigs = contigs  # for ##contig header lines
+            # overlap jit compilation of all batch buckets with extraction
+            if hasattr(self.pileup_engine, "warmup_async"):
+                self.pileup_engine.warmup_async((NO_OF_POSITIONS, 18), np.int32)
+            if self.fa_engine is not None and hasattr(self.fa_engine, "warmup_async"):
+                self.fa_engine.warmup_async(
+                    (self.cfg.matrix_depth, NO_OF_POSITIONS, self.cfg.fa_channels),
+                    np.int8)
+            contig_names = [c for c, _ in contigs]
+            chunk_size = cfg.chunk_size
+            if cfg.chunk_num is not None:
+                # CheckEnvs --chunk_num semantics: N chunks per contig
+                # (<=0: one whole-contig chunk)
+                n = max(1, cfg.chunk_num)
+                longest = max((l for _, l in contigs), default=1)
+                chunk_size = (longest + n - 1) // n if cfg.chunk_num > 0 else 1 << 40
+            tasks = plan_chunks(contigs, chunk_size)
+            if cfg.dist_process_count > 1:
+                from clair3_tpu_torch.parallel.distributed import own_tasks
 
-            tasks = own_tasks(tasks, cfg.dist_process_id,
-                              cfg.dist_process_count)
-            logger.info("[plan] process %d/%d owns %d chunks",
-                        cfg.dist_process_id, cfg.dist_process_count,
-                        len(tasks))
-        logger.info("[plan] %d contigs, %d chunks", len(contigs), len(tasks))
+                tasks = own_tasks(tasks, cfg.dist_process_id,
+                                  cfg.dist_process_count)
+                logger.info("[plan] process %d/%d owns %d chunks",
+                            cfg.dist_process_id, cfg.dist_process_count,
+                            len(tasks))
+            logger.info("[plan] %d contigs, %d chunks", len(contigs), len(tasks))
 
         with self._timed("pileup"):
             pileup_rows = self.run_pileup(tasks)
@@ -733,10 +766,14 @@ class VariantCaller:
 
         merge_path = os.path.join(cfg.output_dir, "merge_output.vcf.gz")
         if cfg.pileup_only or self.fa_engine is None:
-            final_rows = self._genotyping_add_back(self._final_filter(pileup_rows))
-            self._write_vcf(merge_path, final_rows, contigs)
+            # the final filter is this branch's merge
+            with self._timed("merge"):
+                final_rows = self._genotyping_add_back(self._final_filter(pileup_rows))
+            with self._timed("write_vcf"):
+                self._write_vcf(merge_path, final_rows, contigs)
             outputs["merge_output"] = merge_path
-            gvcf_path = self._write_gvcf(final_rows)
+            with self._timed("gvcf"):
+                gvcf_path = self._write_gvcf(final_rows)
             if gvcf_path:
                 outputs["merge_output_gvcf"] = gvcf_path
             self._final_phasing(final_rows, contig_names, outputs)
@@ -746,25 +783,26 @@ class VariantCaller:
         # --- full-alignment cascade ---
         # compact routing stats: one pass over the row strings instead of a
         # parsed VcfRecord per row (O(genome) objects on a real genome)
-        pileup_stats = collect_pileup_stats(pileup_rows)
-        global_phase_qual = None
-        if cfg.dist_process_count > 1:
-            # multi-host: quantile cutoffs must come from EVERY process's
-            # rows or shards route different candidates than a single
-            # process (the reference's SelectQual likewise runs over the
-            # complete pileup VCF, preprocess/SelectQual.py)
-            from clair3_tpu_torch.parallel.distributed import gather_rowpack
-            from clair3_tpu_torch.pipeline.select import (cutoffs_from_rowpack,
-                                                    stats_rowpack)
+        with self._timed("route"):
+            pileup_stats = collect_pileup_stats(pileup_rows)
+            global_phase_qual = None
+            if cfg.dist_process_count > 1:
+                # multi-host: quantile cutoffs must come from EVERY process's
+                # rows or shards route different candidates than a single
+                # process (the reference's SelectQual likewise runs over the
+                # complete pileup VCF, preprocess/SelectQual.py)
+                from clair3_tpu_torch.parallel.distributed import gather_rowpack
+                from clair3_tpu_torch.pipeline.select import (cutoffs_from_rowpack,
+                                                        stats_rowpack)
 
-            pack = gather_rowpack(stats_rowpack(pileup_stats, contig_names))
-            var_qual, ref_qual, global_phase_qual = cutoffs_from_rowpack(
-                *pack, cfg.var_pct_full, cfg.ref_pct_full,
-                cfg.var_pct_phasing)
-        else:
-            var_qual, ref_qual = select_qual_from_stats(
-                pileup_stats, cfg.var_pct_full, cfg.ref_pct_full)
-        logger.info("[select] var_qual=%.2f ref_qual=%.2f", var_qual, ref_qual)
+                pack = gather_rowpack(stats_rowpack(pileup_stats, contig_names))
+                var_qual, ref_qual, global_phase_qual = cutoffs_from_rowpack(
+                    *pack, cfg.var_pct_full, cfg.ref_pct_full,
+                    cfg.var_pct_phasing)
+            else:
+                var_qual, ref_qual = select_qual_from_stats(
+                    pileup_stats, cfg.var_pct_full, cfg.ref_pct_full)
+            logger.info("[select] var_qual=%.2f ref_qual=%.2f", var_qual, ref_qual)
 
         phased_by_contig: Dict[str, List] = {}
         if self.phaser is not None and not cfg.no_phasing_for_fa:
@@ -774,8 +812,9 @@ class VariantCaller:
                               select_phase_qual_from_stats(
                                   pileup_stats, cfg.var_pct_phasing))
                 for ctg in contig_names:
-                    het_snps = select_het_snps_from_stats(
-                        pileup_rows, pileup_stats, phase_qual, ctg)
+                    with host_spans.span("phase.select"):
+                        het_snps = select_het_snps_from_stats(
+                            pileup_rows, pileup_stats, phase_qual, ctg)
                     phased_by_contig[ctg] = self.phaser.phase(ctg, het_snps)
 
         # ilmn: realign reads for the FA stage only (the pileup stage read

@@ -28,6 +28,15 @@ pack's K bucket and the pad are decided once per batch, before it is split,
 as the JAX engine decides them before ``device_put``: the bytes shipped are
 the JAX engine's for the same batches, whatever the device count.
 
+Each step of the host work is a span (``clair3_tpu_torch.spans``: a
+``torch.profiler`` range whose seconds the process sums by name) named by the
+net (``PileupNet.`` / ``FullAlignmentNet.``): on the calling thread
+``.submit`` (``predict_async``) and ``.gather`` (the wait for every shard and
+the host concatenation); on the submitter thread ``.pack`` (wire form and
+pad, once per chunk), ``.pin`` (the pinned host copies of one shard's
+planes) and ``.warmup``.  ``.forward``, each replica's net, is a profiler
+range only.
+
 The pileup high-coverage rescale (``rescale_high_coverage_pileup``) is the
 JAX engine's, copied; ``pipeline/call.py`` takes it from here.
 """
@@ -48,6 +57,7 @@ from clair3_tpu_torch.ops import fa_compact as _fa_compact
 from clair3_tpu_torch.ops import pileup_compact as _pileup_compact
 from clair3_tpu_torch.ops.fa_compact import unpack_fa_sparse_torch, unpack_fa_torch
 from clair3_tpu_torch.ops.pileup_compact import unpack_pileup_torch
+from clair3_tpu_torch.spans import span
 
 _DEFAULT_BUCKETS = (256, 1024, 2048, 4096)
 _EMPTY = np.zeros((0, 90), np.float32)
@@ -114,8 +124,11 @@ class InferenceEngine:
         self.bytes_shipped = 0
         self.dense_bytes = 0
         self.fa_input_channels: Optional[int] = None
-        # the forward's name in a torch.profiler trace
-        self._label = f"{type(model).__name__}.forward"
+        # the names of the engine's steps in a torch.profiler trace
+        net = type(model).__name__
+        self._label = f"{net}.forward"
+        self._spans = {step: f"{net}.{step}"
+                       for step in ("submit", "gather", "pack", "pin", "warmup")}
         self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                          for d in self.devices]
         self._submitter = ThreadPoolExecutor(
@@ -237,8 +250,9 @@ class InferenceEngine:
         """One chunk: its wire form, band, K bucket and pad decided once,
         then its rows split into one equal shard per device; returns each
         shard's ``(probabilities, event)`` in device order."""
-        form, planes, full_depth = self._wire_form(chunk)
-        planes = _pad_to_bucket(planes, chunk.shape[0], bucket)
+        with span(self._spans["pack"]):
+            form, planes, full_depth = self._wire_form(chunk)
+            planes = _pad_to_bucket(planes, chunk.shape[0], bucket)
         self.bytes_shipped += sum(v.nbytes for v in planes.values())
         self.dense_bytes += (bucket * int(np.prod(chunk.shape[1:]))
                              * np.dtype(self.transfer_dtype or chunk.dtype).itemsize)
@@ -253,7 +267,8 @@ class InferenceEngine:
         the forward and the copy back, all queued on the replica's stream
         (one event recorded after them); on the CPU, done in place."""
         net, device, stream = self.replicas[i], self.devices[i], self._streams[i]
-        host = {k: self._host_plane(v, device) for k, v in planes.items()}
+        with span(self._spans["pin"]):
+            host = {k: self._host_plane(v, device) for k, v in planes.items()}
         if stream is None:
             with torch.inference_mode(), record_function(self._label):
                 return net(self._net_input(form, host, full_depth)), None
@@ -273,26 +288,27 @@ class InferenceEngine:
         """Enqueue a host batch; returns handles for ``gather``."""
         handles: List = []
         top = self.buckets[-1]
-        for lo in range(0, x.shape[0], top):
-            chunk = x[lo: lo + top]
-            m = chunk.shape[0]
-            handles.append((self._submitter.submit(
-                self._put_and_forward, chunk, self._bucket_for(m)), m))
+        with span(self._spans["submit"]):
+            for lo in range(0, x.shape[0], top):
+                chunk = x[lo: lo + top]
+                m = chunk.shape[0]
+                handles.append((self._submitter.submit(
+                    self._put_and_forward, chunk, self._bucket_for(m)), m))
         return handles
 
-    @staticmethod
-    def gather(handles: List) -> np.ndarray:
+    def gather(self, handles: List) -> np.ndarray:
         """Wait for async handles; host probabilities ``[N, 24|90]``."""
         if not handles:
             return _EMPTY.copy()
         out = []
-        for fut, m in handles:
-            shards = fut.result()
-            for _, done in shards:
-                if done is not None:
-                    done.synchronize()
-            out.append(np.concatenate([y.float().numpy() for y, _ in shards])[:m])
-        return np.concatenate(out, axis=0)
+        with span(self._spans["gather"]):
+            for fut, m in handles:
+                shards = fut.result()
+                for _, done in shards:
+                    if done is not None:
+                        done.synchronize()
+                out.append(np.concatenate([y.float().numpy() for y, _ in shards])[:m])
+            return np.concatenate(out, axis=0)
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Forward a host batch; probabilities ``[N, 24|90]`` float32."""
@@ -325,12 +341,13 @@ class InferenceEngine:
         so the kernel build, the library initialisation and each route's
         first launches happen before the first real batch.  On the CPU
         there is nothing to prepare."""
-        if all(s is None for s in self._streams):
-            return
-        for x in self.warmup_batches(input_shape, dtype):
-            for _, done in self._put_and_forward(x, self.buckets[0]):
-                if done is not None:
-                    done.synchronize()
+        with span(self._spans["warmup"]):
+            if all(s is None for s in self._streams):
+                return
+            for x in self.warmup_batches(input_shape, dtype):
+                for _, done in self._put_and_forward(x, self.buckets[0]):
+                    if done is not None:
+                        done.synchronize()
 
     def warmup_async(self, input_shape, dtype) -> Future:
         """Queue ``warmup`` on the submitter thread, ahead of any batch."""

@@ -28,8 +28,8 @@ VERBATIM = [
     "io/tabix.py", "io/tok3.py", "io/vcf.py",
     "pileup/__init__.py", "pileup/extractor.py", "fullalign/__init__.py",
     "fullalign/extractor.py", "decode/__init__.py", "decode/decoder.py",
-    "pipeline/call.py", "pipeline/merge_sort.py", "pipeline/select.py",
-    "phase/__init__.py", "phase/external.py", "phase/final_phasing.py", "phase/phaser.py",
+    "pipeline/merge_sort.py", "pipeline/select.py",
+    "phase/__init__.py", "phase/external.py", "phase/final_phasing.py",
     "realign/__init__.py", "realign/align.py", "realign/dbg.py", "realign/realigner.py",
     "train/data.py", "train/unify.py",
     "native/common.h", "native/inflate.h",
@@ -39,6 +39,25 @@ VERBATIM = [
     "native/clair3t_pileup.cc", "native/clair3t_rans.cc", "native/clair3t_rans_nx16.cc",
     "native/clair3t_xz.cc",
 ]
+
+
+
+def _wrap(opener: str, block: str):
+    """The edit that puts ``block`` (whole lines) inside ``with <opener>:``
+    at the block's own indentation."""
+    indent = block[:len(block) - len(block.lstrip(" "))]
+    body = "".join("    " + line if line.strip() else line
+                   for line in block.splitlines(keepends=True))
+    return block, f"{indent}with {opener}:\n{body}"
+
+
+def _span(name: str, block: str, opener: str = "span"):
+    return _wrap(f'{opener}("{name}")', block)
+
+
+def _call_span(name: str, block: str):
+    return _span(name, block, "host_spans.span")
+
 
 # file -> the (old, new) edits that turn the substituted original into the copy
 EDITED = {
@@ -104,6 +123,249 @@ EDITED = {
         ("        engines[kind] = _load_engine(path, kind, platform,\n"
          "                                     compute_dtype=compute_dtype)\n",
          "        engines[kind] = _load_engine(path, kind, dev, dt)\n"),
+    ],
+    # torch.profiler spans inside `call`: every stage a `call.<stage>` span
+    # timed on perf_counter, and spans (clair3_tpu_torch/spans.py) for the
+    # extraction, its wait, decode, the VCF writer and index, and the
+    # phaser's het-SNP selection, whose seconds join stage_times
+    "pipeline/call.py": [
+        ('InferenceEngine.  Decode is plain Python on the host.\n"""\n',
+         "InferenceEngine.  Decode is plain Python on the host.\n\n"
+         "Each stage is a ``call.<stage>`` span of ``torch.profiler`` whose duration\n"
+         "also lands in ``VariantCaller.stage_times[<stage>]``; inside the stages,\n"
+         "spans (``clair3_tpu_torch.spans``) name the extraction on the pool threads\n"
+         "(``pileup.extract``, ``fa.extract``), the calling thread's wait for it\n"
+         "(``*.extract_wait``), each decode (``*.decode``), the VCF writer and its\n"
+         "index (``vcf.write``, ``vcf.index``) and the phaser's het-SNP selection\n"
+         "(``phase.select``); with the phaser's and the engines' own spans, their\n"
+         "seconds land in ``stage_times`` under the span's name.  One span per stage,\n"
+         'chunk, batch or contig: with the profiler off they cost microseconds.\n"""\n'),
+        ("import dataclasses\n", "import contextlib\nimport dataclasses\n"),
+        ("import numpy as np\n\n",
+         "import numpy as np\nfrom torch.profiler import record_function\n\n"
+         "from clair3_tpu_torch import spans as host_spans\n"),
+        _call_span("pileup.extract",
+              "        tensors, pos_infos, alt_infos, res = create_pileup_tensors(\n"
+              "            self.cfg.bam_fn,\n"
+              "            self.cfg.ref_fn,\n"
+              "            task.contig,\n"
+              "            task.start,\n"
+              "            task.end,\n"
+              "            min_mq=self.cfg.min_mq,\n"
+              "            min_depth=self.cfg.min_coverage,\n"
+              "            min_snp_af=self.cfg.snp_min_af,\n"
+              "            min_indel_af=self.cfg.indel_min_af,\n"
+              "            max_indel_length=self.cfg.max_indel_length,\n"
+              "            call_snp_only=self.cfg.call_snp_only,\n"
+              "            gvcf=self.cfg.gvcf,\n"
+              "            head_tail=self.cfg.enable_variant_calling_at_sequence_head_and_tail,\n"
+              "            threads=per_call,\n"
+              "            positions_filter=positions_filter,\n"
+              "        )\n"),
+        ("    def _bounded_map(pool, fn, items, window: int):\n",
+         "    def _bounded_map(pool, fn, items, window: int, wait_span: str):\n"),
+        ("        in completed futures; this caps in-flight work at ``window``.\"\"\"\n",
+         "        in completed futures; this caps in-flight work at ``window``.\n"
+         "        Each wait on the head is a ``wait_span`` span.\"\"\"\n"),
+        ("            yield item, fut.result()\n",
+         "            with host_spans.span(wait_span):\n"
+         "                result = fut.result()\n"
+         "            yield item, result\n"),
+        ("                window=max(2, self.cfg.threads + 1),\n",
+         '                window=max(2, self.cfg.threads + 1), wait_span="pileup.extract_wait",\n'),
+        _wrap("host_spans.span(self._decode_span(decode_cfg))",
+              "            rows.extend(batch_decode_parallel(\n"
+              "                pos_infos, alt_infos, probs, decode_cfg,\n"
+              "                processes=self.cfg.threads))\n"),
+        _wrap("host_spans.span(self._decode_span(decode_cfg))",
+              "        return batch_decode_parallel(pos_infos, alt_infos, probs, decode_cfg,\n"
+              "                                     processes=self.cfg.threads)\n"),
+        ("                                         processes=self.cfg.threads)\n\n",
+         "                                         processes=self.cfg.threads)\n\n"
+         "    @staticmethod\n"
+         "    def _decode_span(decode_cfg) -> str:\n"
+         '        return "pileup.decode" if decode_cfg.pileup else "fa.decode"\n\n'),
+        _call_span("fa.extract",
+              "            return create_fa_tensors(\n"
+              "                self.cfg.bam_fn,\n"
+              "                self.cfg.ref_fn,\n"
+              "                batch.contig,\n"
+              "                batch.positions,\n"
+              "                phased_snps=batch.phased_snps,\n"
+              "                matrix_depth=self.cfg.matrix_depth,\n"
+              "                min_mq=self.cfg.min_mq,\n"
+              "                no_phasing=self.cfg.no_phasing_for_fa,\n"
+              "                enable_dwell=self.cfg.enable_dwell_time,\n"
+              "            )\n"),
+        ("                pool, _extract, batches, window=max(2, self.cfg.threads + 1),\n",
+         "                pool, _extract, batches, window=max(2, self.cfg.threads + 1),\n"
+         '                wait_span="fa.extract_wait",\n'),
+        _call_span("vcf.write",
+              "        with VcfWriter(path, header, threads=self.cfg.threads) as w:\n"
+              "            w.write_rows(rows)\n"),
+        _call_span("vcf.index", "            write_tabix_index(path)\n"),
+        # the stage clock: a method, one span per stage, on perf_counter
+        ("        try:\n"
+         "            outputs = self._run_impl()\n"
+         "        finally:\n"
+         "            self._join_warmups()\n",
+         "        self.stage_times: Dict[str, float] = {}\n"
+         "        before = host_spans.totals()\n"
+         "        try:\n"
+         "            outputs = self._run_impl()\n"
+         "        finally:\n"
+         '            with self._timed("join"):\n'
+         "                self._join_warmups()\n"
+         "            # the steps inside the stages, on every thread of the process\n"
+         "            self.stage_times.update(host_spans.seconds_since(before))\n"),
+        ("        reference only had per-job logs from GNU parallel).\n",
+         "        reference only had per-job logs from GNU parallel), and beside them\n"
+         "        the seconds of each step span (``pileup.decode``, ``phase.reads``,\n"
+         "        ``PileupNet.pack``, ...) closed during the call.\n"),
+        ("    def _run_impl(self) -> Dict[str, str]:\n"
+         "        self.stage_times: Dict[str, float] = {}\n"
+         "\n"
+         "        def _timed(name):\n"
+         "            class _T:\n"
+         "                def __enter__(_s):\n"
+         "                    _s.t0 = time.time()\n"
+         "\n"
+         "                def __exit__(_s, *exc):\n"
+         "                    self.stage_times[name] = (\n"
+         "                        self.stage_times.get(name, 0.0) + time.time() - _s.t0)\n"
+         "\n"
+         "            return _T()\n"
+         "\n",
+         "    @contextlib.contextmanager\n"
+         "    def _timed(self, name: str):\n"
+         '        """One stage: a ``call.<name>`` span on the profiler\'s clock, whose\n'
+         '        ``perf_counter`` duration adds to ``stage_times[name]``."""\n'
+         '        with record_function("call." + name):\n'
+         "            t0 = time.perf_counter()\n"
+         "            try:\n"
+         "                yield\n"
+         "            finally:\n"
+         "                self.stage_times[name] = (\n"
+         "                    self.stage_times.get(name, 0.0) + time.perf_counter() - t0)\n"
+         "\n"
+         "    def _run_impl(self) -> Dict[str, str]:\n"),
+        ("        self._timed = _timed\n", ""),
+        _wrap('self._timed("plan")',
+              "        os.makedirs(cfg.output_dir, exist_ok=True)\n"
+              "        contigs = self.resolve_contigs()\n"
+              "        self._contigs = contigs  # for ##contig header lines\n"
+              "        # overlap jit compilation of all batch buckets with extraction\n"
+              "        if hasattr(self.pileup_engine, \"warmup_async\"):\n"
+              "            self.pileup_engine.warmup_async((NO_OF_POSITIONS, 18), np.int32)\n"
+              "        if self.fa_engine is not None and hasattr(self.fa_engine, \"warmup_async\"):\n"
+              "            self.fa_engine.warmup_async(\n"
+              "                (self.cfg.matrix_depth, NO_OF_POSITIONS, self.cfg.fa_channels),\n"
+              "                np.int8)\n"
+              "        contig_names = [c for c, _ in contigs]\n"
+              "        chunk_size = cfg.chunk_size\n"
+              "        if cfg.chunk_num is not None:\n"
+              "            # CheckEnvs --chunk_num semantics: N chunks per contig\n"
+              "            # (<=0: one whole-contig chunk)\n"
+              "            n = max(1, cfg.chunk_num)\n"
+              "            longest = max((l for _, l in contigs), default=1)\n"
+              "            chunk_size = (longest + n - 1) // n if cfg.chunk_num > 0 else 1 << 40\n"
+              "        tasks = plan_chunks(contigs, chunk_size)\n"
+              "        if cfg.dist_process_count > 1:\n"
+              "            from clair3_tpu_torch.parallel.distributed import own_tasks\n"
+              "\n"
+              "            tasks = own_tasks(tasks, cfg.dist_process_id,\n"
+              "                              cfg.dist_process_count)\n"
+              "            logger.info(\"[plan] process %d/%d owns %d chunks\",\n"
+              "                        cfg.dist_process_id, cfg.dist_process_count,\n"
+              "                        len(tasks))\n"
+              "        logger.info(\"[plan] %d contigs, %d chunks\", len(contigs), len(tasks))\n"),
+        # --pileup_only: the final filter, VCF and gVCF are stages too
+        ("            final_rows = self._genotyping_add_back(self._final_filter(pileup_rows))\n"
+         "            self._write_vcf(merge_path, final_rows, contigs)\n"
+         "            outputs[\"merge_output\"] = merge_path\n"
+         "            gvcf_path = self._write_gvcf(final_rows)\n",
+         "            # the final filter is this branch's merge\n"
+         "            with self._timed(\"merge\"):\n"
+         "                final_rows = self._genotyping_add_back(self._final_filter(pileup_rows))\n"
+         "            with self._timed(\"write_vcf\"):\n"
+         "                self._write_vcf(merge_path, final_rows, contigs)\n"
+         "            outputs[\"merge_output\"] = merge_path\n"
+         "            with self._timed(\"gvcf\"):\n"
+         "                gvcf_path = self._write_gvcf(final_rows)\n"),
+        _wrap('self._timed("route")',
+              "        pileup_stats = collect_pileup_stats(pileup_rows)\n"
+              "        global_phase_qual = None\n"
+              "        if cfg.dist_process_count > 1:\n"
+              "            # multi-host: quantile cutoffs must come from EVERY process's\n"
+              "            # rows or shards route different candidates than a single\n"
+              "            # process (the reference's SelectQual likewise runs over the\n"
+              "            # complete pileup VCF, preprocess/SelectQual.py)\n"
+              "            from clair3_tpu_torch.parallel.distributed import gather_rowpack\n"
+              "            from clair3_tpu_torch.pipeline.select import (cutoffs_from_rowpack,\n"
+              "                                                    stats_rowpack)\n"
+              "\n"
+              "            pack = gather_rowpack(stats_rowpack(pileup_stats, contig_names))\n"
+              "            var_qual, ref_qual, global_phase_qual = cutoffs_from_rowpack(\n"
+              "                *pack, cfg.var_pct_full, cfg.ref_pct_full,\n"
+              "                cfg.var_pct_phasing)\n"
+              "        else:\n"
+              "            var_qual, ref_qual = select_qual_from_stats(\n"
+              "                pileup_stats, cfg.var_pct_full, cfg.ref_pct_full)\n"
+              "        logger.info(\"[select] var_qual=%.2f ref_qual=%.2f\", var_qual, ref_qual)\n"),
+        _call_span("phase.select",
+              "                    het_snps = select_het_snps_from_stats(\n"
+              "                        pileup_rows, pileup_stats, phase_qual, ctg)\n"),
+    ],
+    # spans (clair3_tpu_torch/spans.py) of the phaser's steps, one each per contig
+    "phase/phaser.py": [
+        ('in the FA extractor) and ``1|0`` meaning hap1=alt (code 2).\n"""\n',
+         "in the FA extractor) and ``1|0`` meaning hap1=alt (code 2).\n\n"
+         "``ReadBackedPhaser.phase`` opens one span (``clair3_tpu_torch.spans``) per\n"
+         "step of a contig: ``phase.reads`` (fetch, decode and allele scan of its reads),\n"
+         "``phase.mec`` (the greedy sweep with the first refinement, and the second\n"
+         "refinement) and ``phase.rescue`` (``rescue_phase_sets``).\n"
+         '"""\n'),
+        ("from clair3_tpu_torch.io.vcf import VcfRecord\n",
+         "from clair3_tpu_torch.io.vcf import VcfRecord\n"
+         "from clair3_tpu_torch.spans import span\n"),
+        _span("phase.reads",
+              "        bam = BamReader(self.bam_fn)\n"
+              "        for read in bam.fetch(ctg_name, positions[0], positions[-1] + 1,\n"
+              "                              min_mq=self.min_mq):\n"
+              "            alleles = read_alleles_at_snps(read, positions, snp_ref, snp_alt)\n"
+              "            for (p1, a1), (p2, a2) in zip(alleles, alleles[1:]):\n"
+              "                i, j = index[p1], index[p2]\n"
+              "                edge_votes[(i, j)] += 1 if a1 == a2 else -1\n"
+              "            if len(alleles) >= 2:\n"
+              "                fragments.append([(index[p], a) for p, a in alleles])\n"),
+        _span("phase.mec",
+              "        # incoming edges per SNP for the left-to-right sweep\n"
+              "        incoming: Dict[int, List[Tuple[int, int]]] = defaultdict(list)\n"
+              "        for (i, j), w in edge_votes.items():\n"
+              "            incoming[j].append((i, w))\n"
+              "\n"
+              "        hap: List[Optional[int]] = [None] * len(snps)\n"
+              "        phase_set: List[int] = [0] * len(snps)\n"
+              "        current_ps = snps[0].pos\n"
+              "        hap[0] = 0\n"
+              "        phase_set[0] = current_ps\n"
+              "        for j in range(1, len(snps)):\n"
+              "            vote = 0\n"
+              "            for i, w in incoming[j]:\n"
+              "                if hap[i] is not None:\n"
+              "                    vote += w * (1 - 2 * hap[i])\n"
+              "            if vote == 0:\n"
+              "                # unconnected (or perfectly ambiguous): new phase set\n"
+              "                current_ps = snps[j].pos\n"
+              "                hap[j] = 0\n"
+              "            else:\n"
+              "                hap[j] = 0 if vote > 0 else 1\n"
+              "            phase_set[j] = current_ps\n"
+              "\n"
+              "        hap = refine_mec(hap, fragments)\n"),
+        _span("phase.rescue",
+              "        hap, phase_set = rescue_phase_sets(hap, phase_set, fragments)\n"),
+        _span("phase.mec", "        hap = refine_mec(hap, fragments)\n\n"),
     ],
 }
 

@@ -45,11 +45,11 @@ def test_pileup_engine_async_and_accounting(pileup_engine):
     before = pileup_engine.bytes_shipped
     handles = pileup_engine.predict_async(x)
     assert len(handles) == 1 and handles[0][1] == 300
-    out = InferenceEngine.gather(handles)
+    out = pileup_engine.gather(handles)
     assert out.shape == (300, 90)
     # one int16 batch padded to the 1024 bucket
     assert pileup_engine.bytes_shipped - before == 1024 * 33 * 18 * 2
-    assert InferenceEngine.gather([]).shape == (0, 90)
+    assert pileup_engine.gather([]).shape == (0, 90)
     pileup_engine.warmup_async((33, 18), np.int32)
     pileup_engine.wait_warmup()
 
