@@ -29,7 +29,8 @@ _SRCS = [os.path.join(_DIR, "clair3t_arith.cc"),
          os.path.join(_DIR, "clair3t_cram.cc"),
          os.path.join(_DIR, "clair3t_bzip2.cc"),
          os.path.join(_DIR, "clair3t_xz.cc"),
-         os.path.join(_DIR, "clair3t_pack.cc")]
+         os.path.join(_DIR, "clair3t_pack.cc"),
+         os.path.join(_DIR, "clair3t_phase.cc")]
 _HDRS = [os.path.join(_DIR, "common.h")]
 _SO = os.path.join(_DIR, "libclair3t.so")
 _lock = threading.Lock()
@@ -351,6 +352,86 @@ def fa_region_native(
         return matrix, cand_pos, alt_infos
     finally:
         lib.clair3t_fullalign_free(out_p)
+
+
+class _PhaseAllelesOut(ctypes.Structure):
+    _fields_ = [
+        ("read", ctypes.POINTER(ctypes.c_int32)),
+        ("snp", ctypes.POINTER(ctypes.c_int32)),
+        ("allele", ctypes.POINTER(ctypes.c_int8)),
+        ("n", ctypes.c_int64),
+        ("error", ctypes.c_int32),
+    ]
+
+
+def _bind_phase(lib):
+    if getattr(lib, "_phase_bound", False):
+        return
+    lib.clair3t_phase_alleles.restype = ctypes.POINTER(_PhaseAllelesOut)
+    lib.clair3t_phase_alleles.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
+    ]
+    lib.clair3t_phase_alleles_free.argtypes = [ctypes.POINTER(_PhaseAllelesOut)]
+    lib._phase_bound = True
+
+
+def phase_alleles_native(
+    bam_path: str,
+    ctg_name: str,
+    start: int,
+    end: int,
+    snp_positions,
+    snp_ref: bytes,
+    snp_alt: bytes,
+    *,
+    min_mq: int = 0,
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Native counterpart of ``BamReader.fetch(ctg_name, start, end,
+    min_mq=min_mq)`` followed by phase.phaser.read_alleles_at_snps on
+    every read.
+
+    ``snp_positions`` are sorted, distinct 0-based positions; ``snp_ref`` and
+    ``snp_alt`` hold one byte per position.  Returns three arrays in BAM
+    order, positions ascending within a read: the read's ordinal among the
+    reads kept (int32), the index of the SNP in ``snp_positions`` (int32) and
+    the allele (int8: 0 ref, 1 alt).  None when the native library is not
+    available."""
+    try:
+        lib = get_lib()
+    except Exception:
+        return None
+    _bind_phase(lib)
+    pos = np.ascontiguousarray(snp_positions, dtype=np.int64)
+    n = len(pos)
+    if len(snp_ref) != n or len(snp_alt) != n:
+        raise ValueError("one REF and one ALT byte per SNP position")
+    if n > 1 and not np.all(pos[1:] > pos[:-1]):
+        raise ValueError("SNP positions must be sorted and distinct")
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, np.int8))
+    tid, voffs, n_win = _bai_windows(bam_path, ctg_name, start, end)
+    if n == 0 or n_win < 0:  # nothing to scan, or indexed and provably empty
+        return empty
+    out_p = lib.clair3t_phase_alleles(
+        bam_path.encode(), tid, start, end, min_mq,
+        pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), snp_ref, snp_alt, n,
+        voffs, n_win)
+    out = out_p.contents
+    try:
+        if out.error == 2:
+            raise IndexError(f"a read of {bam_path} {ctg_name} aligns past its sequence")
+        if out.error:
+            raise RuntimeError(
+                f"native phase scan failed (error={out.error}) for {bam_path} {ctg_name}")
+        if out.n == 0:
+            return empty
+        return (np.ctypeslib.as_array(out.read, (out.n,)).copy(),
+                np.ctypeslib.as_array(out.snp, (out.n,)).copy(),
+                np.ctypeslib.as_array(out.allele, (out.n,)).copy())
+    finally:
+        lib.clair3t_phase_alleles_free(out_p)
 
 
 class _DecodeOut(ctypes.Structure):

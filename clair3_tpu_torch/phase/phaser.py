@@ -26,7 +26,13 @@ in the FA extractor) and ``1|0`` meaning hap1=alt (code 2).
 ``ReadBackedPhaser.phase`` opens one span (``clair3_tpu_torch.spans``) per
 step of a contig: ``phase.reads`` (fetch, decode and allele scan of its reads),
 ``phase.mec`` (the greedy sweep with the first refinement, and the second
-refinement) and ``phase.rescue`` (``rescue_phase_sets``).
+refinement) and ``phase.rescue`` (``rescue_phase_sets``).  Where the native
+library is available the read scan is one call into it
+(``native.phase_alleles_native``), inside ``phase.reads`` under a span of its
+own, ``phase.native_scan``: its calls against those of ``phase.reads`` count the
+contigs that took the native route.  Without the library the reads are fetched
+and scanned in Python (``BamReader.fetch`` + ``read_alleles_at_snps``), with the
+same alleles read for read.
 """
 
 from __future__ import annotations
@@ -35,8 +41,11 @@ from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from clair3_tpu_torch.io.bam import BamRead, BamReader
 from clair3_tpu_torch.io.vcf import VcfRecord
+from clair3_tpu_torch.native import native_available, phase_alleles_native
 from clair3_tpu_torch.spans import span
 
 MIN_PHASING_MQ = 20
@@ -70,6 +79,26 @@ def read_alleles_at_snps(
         elif op in (1, 4):
             query_pos += length
     return out
+
+
+def native_read_alleles(
+    bam_fn: str, ctg_name: str, snp_ref: Dict[int, str], snp_alt: Dict[int, str],
+    min_mq: int,
+) -> List[List[Tuple[int, int]]]:
+    """``read_alleles_at_snps`` of every read ``BamReader.fetch`` keeps from the
+    first SNP to the last, from one native call; reads without an allele are
+    left out."""
+    uniq = sorted(snp_ref)
+    # a character outside ASCII becomes '?', which no decoded base equals
+    ref = "".join(snp_ref[p] for p in uniq).encode("ascii", "replace")
+    alt = "".join(snp_alt[p] for p in uniq).encode("ascii", "replace")
+    with span("phase.native_scan"):
+        read, snp, allele = phase_alleles_native(
+            bam_fn, ctg_name, uniq[0], uniq[-1] + 1, uniq, ref, alt, min_mq=min_mq)
+    pos = [uniq[k] for k in snp.tolist()]
+    allele = allele.tolist()
+    bounds = [0, *(np.flatnonzero(np.diff(read)) + 1).tolist(), len(pos)]
+    return [list(zip(pos[a:b], allele[a:b])) for a, b in zip(bounds, bounds[1:]) if b > a]
 
 
 def refine_mec(
@@ -187,10 +216,15 @@ class ReadBackedPhaser:
         edge_votes: Dict[Tuple[int, int], int] = defaultdict(int)
         fragments: List[List[Tuple[int, int]]] = []
         with span("phase.reads"):
-            bam = BamReader(self.bam_fn)
-            for read in bam.fetch(ctg_name, positions[0], positions[-1] + 1,
-                                  min_mq=self.min_mq):
-                alleles = read_alleles_at_snps(read, positions, snp_ref, snp_alt)
+            if native_available():
+                reads = native_read_alleles(self.bam_fn, ctg_name, snp_ref, snp_alt,
+                                            self.min_mq)
+            else:
+                bam = BamReader(self.bam_fn)
+                reads = (read_alleles_at_snps(read, positions, snp_ref, snp_alt)
+                         for read in bam.fetch(ctg_name, positions[0], positions[-1] + 1,
+                                               min_mq=self.min_mq))
+            for alleles in reads:
                 for (p1, a1), (p2, a2) in zip(alleles, alleles[1:]):
                     i, j = index[p1], index[p2]
                     edge_votes[(i, j)] += 1 if a1 == a2 else -1

@@ -59,7 +59,9 @@ def _call_span(name: str, block: str):
     return _span(name, block, "host_spans.span")
 
 
-# file -> the (old, new) edits that turn the substituted original into the copy
+# file -> the (old, new) edits that turn the substituted original into the copy;
+# ("CUT", name) drops the original's definition `name`, ("OWN", name) names a
+# top-level definition of the port's own that the original lacks
 EDITED = {
     # the override has a name of the port's own; one build under a file lock
     "native/__init__.py": [
@@ -92,6 +94,11 @@ EDITED = {
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, _SO)
 """),
+        # the phaser's read scan (clair3t_phase.cc has no original)
+        ('         os.path.join(_DIR, "clair3t_pack.cc")]\n',
+         '         os.path.join(_DIR, "clair3t_pack.cc"),\n'
+         '         os.path.join(_DIR, "clair3t_phase.cc")]\n'),
+        ("OWN", "_PhaseAllelesOut"), ("OWN", "_bind_phase"), ("OWN", "phase_alleles_native"),
     ],
     # enable_compilation_cache imports jax; the decoder needs the rest
     "utils/common.py": [("CUT", "enable_compilation_cache")],
@@ -316,28 +323,54 @@ EDITED = {
               "                    het_snps = select_het_snps_from_stats(\n"
               "                        pileup_rows, pileup_stats, phase_qual, ctg)\n"),
     ],
-    # spans (clair3_tpu_torch/spans.py) of the phaser's steps, one each per contig
+    # spans (clair3_tpu_torch/spans.py) of the phaser's steps, one each per
+    # contig; the read scan in the native library where it is available
     "phase/phaser.py": [
         ('in the FA extractor) and ``1|0`` meaning hap1=alt (code 2).\n"""\n',
          "in the FA extractor) and ``1|0`` meaning hap1=alt (code 2).\n\n"
          "``ReadBackedPhaser.phase`` opens one span (``clair3_tpu_torch.spans``) per\n"
          "step of a contig: ``phase.reads`` (fetch, decode and allele scan of its reads),\n"
          "``phase.mec`` (the greedy sweep with the first refinement, and the second\n"
-         "refinement) and ``phase.rescue`` (``rescue_phase_sets``).\n"
+         "refinement) and ``phase.rescue`` (``rescue_phase_sets``).  Where the native\n"
+         "library is available the read scan is one call into it\n"
+         "(``native.phase_alleles_native``), inside ``phase.reads`` under a span of its\n"
+         "own, ``phase.native_scan``: its calls against those of ``phase.reads`` count the\n"
+         "contigs that took the native route.  Without the library the reads are fetched\n"
+         "and scanned in Python (``BamReader.fetch`` + ``read_alleles_at_snps``), with the\n"
+         "same alleles read for read.\n"
          '"""\n'),
+        ("from typing import Dict, List, Optional, Sequence, Tuple\n\n",
+         "from typing import Dict, List, Optional, Sequence, Tuple\n\n"
+         "import numpy as np\n\n"),
         ("from clair3_tpu_torch.io.vcf import VcfRecord\n",
          "from clair3_tpu_torch.io.vcf import VcfRecord\n"
+         "from clair3_tpu_torch.native import native_available, phase_alleles_native\n"
          "from clair3_tpu_torch.spans import span\n"),
-        _span("phase.reads",
-              "        bam = BamReader(self.bam_fn)\n"
-              "        for read in bam.fetch(ctg_name, positions[0], positions[-1] + 1,\n"
-              "                              min_mq=self.min_mq):\n"
-              "            alleles = read_alleles_at_snps(read, positions, snp_ref, snp_alt)\n"
-              "            for (p1, a1), (p2, a2) in zip(alleles, alleles[1:]):\n"
-              "                i, j = index[p1], index[p2]\n"
-              "                edge_votes[(i, j)] += 1 if a1 == a2 else -1\n"
-              "            if len(alleles) >= 2:\n"
-              "                fragments.append([(index[p], a) for p, a in alleles])\n"),
+        ("OWN", "native_read_alleles"),
+        ("        bam = BamReader(self.bam_fn)\n"
+         "        for read in bam.fetch(ctg_name, positions[0], positions[-1] + 1,\n"
+         "                              min_mq=self.min_mq):\n"
+         "            alleles = read_alleles_at_snps(read, positions, snp_ref, snp_alt)\n"
+         "            for (p1, a1), (p2, a2) in zip(alleles, alleles[1:]):\n"
+         "                i, j = index[p1], index[p2]\n"
+         "                edge_votes[(i, j)] += 1 if a1 == a2 else -1\n"
+         "            if len(alleles) >= 2:\n"
+         "                fragments.append([(index[p], a) for p, a in alleles])\n",
+         '        with span("phase.reads"):\n'
+         "            if native_available():\n"
+         "                reads = native_read_alleles(self.bam_fn, ctg_name, snp_ref, snp_alt,\n"
+         "                                            self.min_mq)\n"
+         "            else:\n"
+         "                bam = BamReader(self.bam_fn)\n"
+         "                reads = (read_alleles_at_snps(read, positions, snp_ref, snp_alt)\n"
+         "                         for read in bam.fetch(ctg_name, positions[0], positions[-1] + 1,\n"
+         "                                               min_mq=self.min_mq))\n"
+         "            for alleles in reads:\n"
+         "                for (p1, a1), (p2, a2) in zip(alleles, alleles[1:]):\n"
+         "                    i, j = index[p1], index[p2]\n"
+         "                    edge_votes[(i, j)] += 1 if a1 == a2 else -1\n"
+         "                if len(alleles) >= 2:\n"
+         "                    fragments.append([(index[p], a) for p, a in alleles])\n"),
         _span("phase.mec",
               "        # incoming edges per SNP for the left-to-right sweep\n"
               "        incoming: Dict[int, List[Tuple[int, int]]] = defaultdict(list)\n"
@@ -475,13 +508,21 @@ def test_copy_equals_original(rel):
 @pytest.mark.parametrize("rel", sorted(EDITED))
 def test_copy_differs_only_as_named(rel):
     want = _sub(_read(os.path.join(JAX, rel)))
+    have = _read(os.path.join(PORT, rel))
     for old, new in EDITED[rel]:
+        if old == "OWN":
+            # a top-level definition of the port's own, which the original lacks
+            assert new not in _definitions(os.path.join(JAX, rel)), f"{rel}: {new} is a copy"
+            own = "\n\n" + _definitions(os.path.join(PORT, rel))[new]
+            assert own in have, f"{rel}: {new} is not where the file's layout puts it"
+            have = have.replace(own, "", 1)
+            continue
         if old == "CUT":
             cut = _definitions(os.path.join(JAX, rel))[new]
             old, new = "\n\n" + cut, ""
         assert old in want, f"{rel}: the named edit no longer applies: {old[:80]!r}"
         want = want.replace(old, new)
-    assert _read(os.path.join(PORT, rel)) == want
+    assert have == want
 
 
 @pytest.mark.parametrize("key", sorted(DEFINITIONS))

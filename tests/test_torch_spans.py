@@ -34,8 +34,8 @@ STAGES = ("plan", "pileup", "sort", "write_vcf", "route", "phase", "full_alignme
 SPANS = ({"call." + s for s in STAGES}
          | {f"{k}.{step}" for k in ("pileup", "fa")
             for step in ("extract", "extract_wait", "decode")}
-         | {"vcf.write", "vcf.index", "phase.select", "phase.reads", "phase.mec",
-            "phase.rescue"}
+         | {"vcf.write", "vcf.index", "phase.select", "phase.reads", "phase.native_scan",
+            "phase.mec", "phase.rescue"}
          | {f"{n}.{step}" for n in NETS
             for step in ("submit", "gather", "pack", "pin", "warmup")})
 VCFS = ("pileup.vcf.gz", "full_alignment.vcf.gz", "merge_output.vcf.gz")
@@ -106,8 +106,8 @@ def test_spans_run_on_the_threads_that_do_the_work(traced):
         assert pool and not pool & (caller_thread | submitters), stage
         assert _threads(events, f"{stage}.extract_wait") == caller_thread
         assert _threads(events, f"{stage}.decode") == caller_thread
-    for name in ("vcf.write", "vcf.index", "phase.select", "phase.reads", "phase.mec",
-                 "phase.rescue"):
+    for name in ("vcf.write", "vcf.index", "phase.select", "phase.reads",
+                 "phase.native_scan", "phase.mec", "phase.rescue"):
         assert _threads(events, name) == caller_thread, name
 
 
@@ -116,7 +116,8 @@ def test_phase_spans_nest_inside_the_phase_stage(traced):
     stage = events["call.phase"]
     assert len(stage) == 1
     s0, e0, t0 = stage[0]
-    for name in ("phase.select", "phase.reads", "phase.mec", "phase.rescue"):
+    for name in ("phase.select", "phase.reads", "phase.native_scan", "phase.mec",
+                 "phase.rescue"):
         for s, e, t in events[name]:
             assert t == t0 and s0 <= s and e <= e0, name
 
