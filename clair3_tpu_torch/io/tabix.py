@@ -9,6 +9,12 @@ virtual-offset chunks plus a 16 kb linear index.
 ``TabixReader`` uses the index for random region access into .vcf.gz files
 without decompressing the whole file — the same capability downstream tools
 get from the index.
+
+``write_tabix_index`` builds the index in the native library where it is
+available (``native.tabix_payload_native``, one call under the span
+``vcf.index_native`` of ``clair3_tpu_torch.spans``), else, or where the library
+declines the file, in Python (``tabix_payload_python``): the same bytes either
+way, and the Python indexer raises on what it cannot index.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import zlib
 from typing import Dict, Iterator, List, Optional, Tuple
 
 from clair3_tpu_torch.io.bgzf import BgzfWriter
+from clair3_tpu_torch.native import native_available, tabix_payload_native
+from clair3_tpu_torch.spans import span
 
 _TBI_MAGIC = b"TBI\x01"
 _LINEAR_SHIFT = 14  # 16 kb windows
@@ -75,7 +83,19 @@ def _iter_bgzf_blocks(path: str):
 def write_tabix_index(vcf_gz_path: str, tbi_path: Optional[str] = None) -> str:
     """Build a .tbi for a coordinate-sorted BGZF VCF."""
     tbi_path = tbi_path or vcf_gz_path + ".tbi"
+    payload = None
+    if native_available():
+        with span("vcf.index_native"):
+            payload = tabix_payload_native(vcf_gz_path)
+    if payload is None:
+        payload = tabix_payload_python(vcf_gz_path)
+    with BgzfWriter(tbi_path) as out:
+        out.write(bytes(payload))
+    return tbi_path
 
+
+def tabix_payload_python(vcf_gz_path: str) -> bytearray:
+    """The uncompressed .tbi of a coordinate-sorted BGZF VCF, built in Python."""
     # walk rows with their virtual offsets
     names: List[str] = []
     name_id: Dict[str, int] = {}
@@ -159,9 +179,7 @@ def write_tabix_index(vcf_gz_path: str, tbi_path: Optional[str] = None) -> str:
         for v in ioff:
             payload += struct.pack("<Q", v)
 
-    with BgzfWriter(tbi_path) as out:
-        out.write(bytes(payload))
-    return tbi_path
+    return payload
 
 
 class TabixReader:

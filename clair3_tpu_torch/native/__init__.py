@@ -30,7 +30,8 @@ _SRCS = [os.path.join(_DIR, "clair3t_arith.cc"),
          os.path.join(_DIR, "clair3t_bzip2.cc"),
          os.path.join(_DIR, "clair3t_xz.cc"),
          os.path.join(_DIR, "clair3t_pack.cc"),
-         os.path.join(_DIR, "clair3t_phase.cc")]
+         os.path.join(_DIR, "clair3t_phase.cc"),
+         os.path.join(_DIR, "clair3t_tabix.cc")]
 _HDRS = [os.path.join(_DIR, "common.h")]
 _SO = os.path.join(_DIR, "libclair3t.so")
 _lock = threading.Lock()
@@ -432,6 +433,53 @@ def phase_alleles_native(
                 np.ctypeslib.as_array(out.allele, (out.n,)).copy())
     finally:
         lib.clair3t_phase_alleles_free(out_p)
+
+
+class _TabixOut(ctypes.Structure):
+    _fields_ = [
+        ("data", ctypes.POINTER(ctypes.c_uint8)),
+        ("n", ctypes.c_int64),
+        ("error", ctypes.c_int32),
+    ]
+
+
+def _bind_tabix(lib):
+    if getattr(lib, "_tabix_bound", False):
+        return
+    lib.clair3t_tabix_index.restype = ctypes.POINTER(_TabixOut)
+    lib.clair3t_tabix_index.argtypes = [ctypes.c_char_p]
+    lib.clair3t_tabix_free.argtypes = [ctypes.POINTER(_TabixOut)]
+    lib._tabix_bound = True
+
+
+def tabix_payload_native(vcf_gz_path: str) -> Optional[bytes]:
+    """Native counterpart of io.tabix.tabix_payload_python: the uncompressed
+    .tbi payload of a coordinate-sorted BGZF VCF, byte for byte.
+
+    None when the native library is not available, or where it declines the
+    file: one it does not read as BGZF, a row with fewer than four columns or
+    a POS other than plain digits in [1, 2^31), or a contig name that is not
+    UTF-8.  The Python indexer then builds the same payload or raises."""
+    try:
+        lib = get_lib()
+    except Exception:
+        return None
+    _bind_tabix(lib)
+    out_p = lib.clair3t_tabix_index(os.fsencode(vcf_gz_path))
+    out = out_p.contents
+    try:
+        if out.error:
+            return None
+        payload = ctypes.string_at(out.data, out.n)
+    finally:
+        lib.clair3t_tabix_free(out_p)
+    # the Python indexer decodes each contig name (l_nm at byte 32, the names after it)
+    l_nm = int.from_bytes(payload[32:36], "little")
+    try:
+        payload[36:36 + l_nm].decode()
+    except UnicodeDecodeError:
+        return None
+    return payload
 
 
 class _DecodeOut(ctypes.Structure):

@@ -25,7 +25,7 @@ VERBATIM = [
     "task/__init__.py", "task/labels.py", "utils/__init__.py",
     "io/__init__.py", "io/arith.py", "io/bai.py", "io/bam.py", "io/bed.py", "io/bgzf.py",
     "io/cram.py", "io/fasta.py", "io/fqzcomp.py", "io/rans.py", "io/rans_nx16.py",
-    "io/tabix.py", "io/tok3.py", "io/vcf.py",
+    "io/tok3.py", "io/vcf.py",
     "pileup/__init__.py", "pileup/extractor.py", "fullalign/__init__.py",
     "fullalign/extractor.py", "decode/__init__.py", "decode/decoder.py",
     "pipeline/merge_sort.py", "pipeline/select.py",
@@ -99,6 +99,47 @@ EDITED = {
          '         os.path.join(_DIR, "clair3t_pack.cc"),\n'
          '         os.path.join(_DIR, "clair3t_phase.cc")]\n'),
         ("OWN", "_PhaseAllelesOut"), ("OWN", "_bind_phase"), ("OWN", "phase_alleles_native"),
+        # the tabix indexer (clair3t_tabix.cc has no original)
+        ('         os.path.join(_DIR, "clair3t_phase.cc")]\n',
+         '         os.path.join(_DIR, "clair3t_phase.cc"),\n'
+         '         os.path.join(_DIR, "clair3t_tabix.cc")]\n'),
+        ("OWN", "_TabixOut"), ("OWN", "_bind_tabix"), ("OWN", "tabix_payload_native"),
+    ],
+    # the index is built in the native library where it is available, under
+    # the span vcf.index_native; the Python indexer is the rest of the function
+    "io/tabix.py": [
+        ("get from the index.\n\"\"\"\n",
+         "get from the index.\n\n"
+         "``write_tabix_index`` builds the index in the native library where it is\n"
+         "available (``native.tabix_payload_native``, one call under the span\n"
+         "``vcf.index_native`` of ``clair3_tpu_torch.spans``), else, or where the library\n"
+         "declines the file, in Python (``tabix_payload_python``): the same bytes either\n"
+         "way, and the Python indexer raises on what it cannot index.\n"
+         '"""\n'),
+        ("from clair3_tpu_torch.io.bgzf import BgzfWriter\n",
+         "from clair3_tpu_torch.io.bgzf import BgzfWriter\n"
+         "from clair3_tpu_torch.native import native_available, tabix_payload_native\n"
+         "from clair3_tpu_torch.spans import span\n"),
+        # the Python indexer returns its payload, which write_tabix_index writes
+        ("    with BgzfWriter(tbi_path) as out:\n"
+         "        out.write(bytes(payload))\n"
+         "    return tbi_path\n",
+         "    return payload\n"),
+        ('    tbi_path = tbi_path or vcf_gz_path + ".tbi"\n\n'
+         "    # walk rows with their virtual offsets\n",
+         '    tbi_path = tbi_path or vcf_gz_path + ".tbi"\n'
+         "    payload = None\n"
+         "    if native_available():\n"
+         '        with span("vcf.index_native"):\n'
+         "            payload = tabix_payload_native(vcf_gz_path)\n"
+         "    if payload is None:\n"
+         "        payload = tabix_payload_python(vcf_gz_path)\n"
+         "    with BgzfWriter(tbi_path) as out:\n"
+         "        out.write(bytes(payload))\n"
+         "    return tbi_path\n\n\n"
+         "def tabix_payload_python(vcf_gz_path: str) -> bytearray:\n"
+         '    """The uncompressed .tbi of a coordinate-sorted BGZF VCF, built in Python."""\n'
+         "    # walk rows with their virtual offsets\n"),
     ],
     # enable_compilation_cache imports jax; the decoder needs the rest
     "utils/common.py": [("CUT", "enable_compilation_cache")],

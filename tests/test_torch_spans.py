@@ -6,6 +6,7 @@ phasing and full alignment on, once plainly and once under
 ``torch.profiler`` with every thread recorded.  The trace must hold every
 span of the call pipeline, the phaser and the engines, each on the thread
 that does the work; the phaser's spans sit inside the phase stage; each
+VCF's index is built in the native library, inside its ``vcf.index``; each
 stage's ``stage_times`` entry is its ``call.<stage>`` spans' duration, and
 each step span's seconds sit beside them under its name; and the profiler
 changes no byte of the VCFs.
@@ -34,8 +35,8 @@ STAGES = ("plan", "pileup", "sort", "write_vcf", "route", "phase", "full_alignme
 SPANS = ({"call." + s for s in STAGES}
          | {f"{k}.{step}" for k in ("pileup", "fa")
             for step in ("extract", "extract_wait", "decode")}
-         | {"vcf.write", "vcf.index", "phase.select", "phase.reads", "phase.native_scan",
-            "phase.mec", "phase.rescue"}
+         | {"vcf.write", "vcf.index", "vcf.index_native", "phase.select", "phase.reads",
+            "phase.native_scan", "phase.mec", "phase.rescue"}
          | {f"{n}.{step}" for n in NETS
             for step in ("submit", "gather", "pack", "pin", "warmup")})
 VCFS = ("pileup.vcf.gz", "full_alignment.vcf.gz", "merge_output.vcf.gz")
@@ -106,7 +107,7 @@ def test_spans_run_on_the_threads_that_do_the_work(traced):
         assert pool and not pool & (caller_thread | submitters), stage
         assert _threads(events, f"{stage}.extract_wait") == caller_thread
         assert _threads(events, f"{stage}.decode") == caller_thread
-    for name in ("vcf.write", "vcf.index", "phase.select", "phase.reads",
+    for name in ("vcf.write", "vcf.index", "vcf.index_native", "phase.select", "phase.reads",
                  "phase.native_scan", "phase.mec", "phase.rescue"):
         assert _threads(events, name) == caller_thread, name
 
@@ -120,6 +121,15 @@ def test_phase_spans_nest_inside_the_phase_stage(traced):
                  "phase.rescue"):
         for s, e, t in events[name]:
             assert t == t0 and s0 <= s and e <= e0, name
+
+
+def test_every_index_is_built_in_the_native_library(traced):
+    """``vcf.index_native`` closes once inside each ``vcf.index``: one a VCF."""
+    _, _, events = traced
+    index, native = sorted(events["vcf.index"]), sorted(events["vcf.index_native"])
+    assert len(index) == len(native) == len(VCFS)
+    for (s0, e0, t0), (s, e, t) in zip(index, native):
+        assert t == t0 and s0 <= s and e <= e0
 
 
 def test_stage_times_are_the_stage_spans(traced):
